@@ -13,7 +13,10 @@ import jax
 
 jax.config.update("jax_platforms", os.environ.get("NG_PLATFORM", "cpu"))
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
+
+from nextgp_tpu import backend  # noqa: E402
+
+backend.compile_cache()
 
 import numpy as np
 import nextgp_tpu as ng

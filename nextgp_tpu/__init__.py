@@ -1,13 +1,13 @@
-"""nextgp_tpu — TPU-native Bayesian genomic prediction.
+"""nextgp_tpu — Bayesian genomic prediction on GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the method surface of
-`datasciencetoolkit/NextGP.jl` (mounted read-only at /root/reference):
+`datasciencetoolkit/NextGP.jl`:
 whole-genome Bayesian regression (BayesPR/A/B/C/R/RCpi/RCplus/LV),
 Henderson mixed-model random effects (pedigree/GBLUP), summary-statistic
-priors, and the GRN structural-equation sampler — engineered for TPU:
-int8 HBM-resident genotypes, blocked Gram single-site Gibbs on the MXU,
-column-sharded marker matrices with psum-merged residual corrections,
-data-parallel chains.
+priors, and the GRN structural-equation sampler — built around
+device-resident int8 or 2-bit packed genotypes, blocked-Gram single-site
+Gibbs with the in-block chain in one Triton kernel, column-sharded marker
+matrices with psum-merged residual corrections, data-parallel chains.
 """
 from .api.priors import (  # noqa: F401
     BayesB,

@@ -130,7 +130,7 @@ class RandomEffect:
     sampler: "scan" = the reference's per-level sequential Gibbs
              (functions.jl:57-72); "cg" = exact joint MvNormal draw by
              perturbed conjugate gradient — sparse, scan-free, for large
-             level counts (TPU-native extension; "I"/"A" structures only).
+             level counts (an extension of this package; "I"/"A" structures only).
     """
 
     str_: Any

@@ -8,7 +8,7 @@ Here a JSON (or TOML) config compiles to the same pipeline:
     python -m nextgp_tpu summary betaM --out-folder outMCMC
     python -m nextgp_tpu diag varE --out-folder outMCMC   # multi-chain R-hat/ESS
     python -m nextgp_tpu predict analysis.json --set M --new new_geno.txt
-    python -m nextgp_tpu roofline analysis.json --device v5e
+    python -m nextgp_tpu roofline analysis.json   # peaks of the running device
 
 Config schema (all paths relative to the config file):
 
@@ -25,7 +25,7 @@ Config schema (all paths relative to the config file):
       "chain":     {"length": 50000, "burnin": 5000, "thin": 10, "seed": 1,
                     "chains": 4},               # >1 = data-parallel run_chains + R-hat/ESS
       "block_size": 512,
-      "vshards":   "auto",                       # or an int; "auto" = tuned TPU schedule
+      "vshards":   "auto",                       # or an int; "auto" = the platform's schedule
       "out_folder": "outMCMC"
     }
 """
@@ -40,6 +40,7 @@ from typing import Any, Dict
 
 import numpy as np
 
+from . import backend
 from .api import priors as P
 
 
@@ -132,8 +133,8 @@ def _spec_from_config(cfg: Dict[str, Any], base: str):
 
 
 def _parse_vshards(v):
-    """Config `vshards`: "auto" (default — tuned schedule on the TPU kernel
-    path, sequential V=1 elsewhere) or an explicit integer."""
+    """Config `vshards`: "auto" (default — the platform's schedule,
+    `backend.auto_vshards`; sequential V=1 on the CPU) or an integer."""
     return "auto" if isinstance(v, str) and v.lower() == "auto" else int(v)
 
 
@@ -285,7 +286,8 @@ def main(argv=None) -> int:
     s.set_defaults(fn=cmd_summary)
     rf = sub.add_parser("roofline", help="analytic per-sweep roofline for a config")
     rf.add_argument("config")
-    rf.add_argument("--device", default="v5e")
+    rf.add_argument("--device", default=None,
+                    help="JAX device_kind whose peaks to use (default: the running device)")
     rf.add_argument("--shards", type=int, default=1)
     rf.set_defaults(fn=cmd_roofline)
     dg = sub.add_parser("diag", help="cross-chain split-Rhat/ESS from run_chains output")
@@ -305,6 +307,7 @@ def main(argv=None) -> int:
                                                    "instead of stdout")
     pr.set_defaults(fn=cmd_predict)
     args = ap.parse_args(argv)
+    backend.compile_cache()
     return args.fn(args)
 
 

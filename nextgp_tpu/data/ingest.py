@@ -2,9 +2,9 @@
 
 Reference behavior (`/root/reference/src/prepMatVec.jl:113-134`): read a
 space-delimited headerless genotype file, drop any column containing a
-missing value, mean-center columns, keep dense f64. The TPU build instead
-keeps the raw 0/1/2 dosages as int8 (HBM-resident; 4x less bandwidth than
-f32) plus an f32 center vector, and applies centering algebraically inside
+missing value, mean-center columns, keep dense f64. This package instead
+keeps the raw 0/1/2 dosages as int8 (device-resident; 4x less bandwidth
+than f32) plus an f32 center vector, and applies centering algebraically inside
 the kernels: m_centered[:, j] = g[:, j] - center[j].
 """
 from __future__ import annotations
@@ -84,7 +84,7 @@ def from_float_array(m, snp_ids=None, chr_ids=None) -> MarkerData:
     storage by keeping a float genotype matrix. Center is still the column
     mean. Host storage stays float64 — the reference stores centered f64
     (prepMatVec.jl:129) and the f64 golden/equivalence chains must see the
-    exact input values; `assemble` casts to the engine dtype (f32 on TPU)
+    exact input values; `assemble` casts to the engine dtype (f32 by default)
     only when building the device storage."""
     m = np.asarray(m, dtype=np.float64)
     if snp_ids is None:
@@ -117,7 +117,7 @@ def from_device_array(g, snp_ids=None, chr_ids=None) -> MarkerData:
     import jax.numpy as jnp
 
     # f64 where enabled (exact, matches the host path under tests); silently
-    # f32 on TPU default config. jit fuses the convert into the reduction so
+    # f32 in the default config. jit fuses the convert into the reduction so
     # no full-precision copy of g is ever materialized (a 50k x 75k int8
     # matrix would need a 15 GB f32 copy otherwise).
     acc = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32

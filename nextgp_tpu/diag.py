@@ -30,14 +30,13 @@ def trace(log_dir: str = "/tmp/nextgp_trace"):
         yield log_dir
 
 
-# device peaks for roofline estimates (per chip, dense) — public figures
+# Published peaks, keyed by JAX's device_kind: (f32 TFLOP/s outside the
+# tensor cores, TF32 tensor-core TFLOP/s, device-memory GB/s). Source:
+# NVIDIA H100 Tensor Core GPU data sheet, SXM part, dense rates at the
+# 700 W limit. The sweep's products are f32 (precision pinned, utils.HI),
+# so the f32 rate is the compute bound.
 _DEVICE_PEAKS = {
-    # name: (bf16 TFLOP/s, f32 TFLOP/s, HBM GB/s)
-    "v4": (275.0, 137.0, 1200.0),
-    "v5e": (394.0, 197.0, 819.0),
-    "v5p": (459.0, 229.0, 2765.0),
-    "v6e": (918.0, 459.0, 1640.0),
-    "cpu": (1.0, 0.5, 50.0),
+    "NVIDIA H100 80GB HBM3": (67.0, 495.0, 3350.0),
 }
 
 
@@ -46,8 +45,8 @@ class RooflineReport:
     bytes_per_sweep: float
     flops_per_sweep: float
     intensity: float  # flops/byte
-    t_bandwidth_s: float  # HBM-bound lower bound
-    t_compute_s: float  # MXU-bound lower bound
+    t_bandwidth_s: float  # memory-bound lower bound
+    t_compute_s: float  # f32-compute-bound lower bound
     bound: str
     sweeps_per_sec_roof: float
 
@@ -60,18 +59,24 @@ class RooflineReport:
         )
 
 
-def roofline(plan: SweepPlan, device: str = "v5e", n_shards: int = 1) -> RooflineReport:
-    """Analytic per-sweep traffic/flops of the blocked marker sweep.
+def roofline(plan: SweepPlan, device: Optional[str] = None,
+             n_shards: int = 1) -> RooflineReport:
+    """Analytic per-sweep traffic/flops of the blocked marker sweep against
+    a device's published peaks (device: a JAX device_kind, default the
+    running device's; a device the table lacks is an error).
 
     Per marker set: the int8 mt is read twice per sweep (r0 matvec +
     correction rank-B update), the Gram blocks once, plus the in-block scan
     (p x B MACs) — SURVEY.md §3.5 re-derived for the blocked formulation.
     """
+    if device is None:
+        import jax
+
+        device = jax.devices()[0].device_kind
     if device not in _DEVICE_PEAKS:
         raise ValueError(
-            f"unknown device {device!r}; one of {sorted(_DEVICE_PEAKS)}")
-    peaks = _DEVICE_PEAKS[device]
-    _, f32_tflops, hbm = peaks
+            f"device {device!r} is not in the peak table; one of {sorted(_DEVICE_PEAKS)}")
+    f32_tflops, _, hbm = _DEVICE_PEAKS[device]
     n = plan.n
     bytes_total = 0.0
     flops = 0.0
@@ -96,6 +101,19 @@ def roofline(plan: SweepPlan, device: str = "v5e", n_shards: int = 1) -> Rooflin
         bound=bound,
         sweeps_per_sec_roof=1.0 / t if t > 0 else float("inf"),
     )
+
+
+def card_info() -> str:
+    """The card's name and power limit as nvidia-smi reports them
+    ("name, power.limit" per GPU, one per line). A card set below its
+    maximum power runs slower under load, so this goes beside every time
+    the benchmark prints. Raises when nvidia-smi is missing or fails."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
 
 
 class SweepMeter:

@@ -1,6 +1,6 @@
 """Planner: ModelSpec -> (static SweepPlan, device ModelState).
 
-This is the TPU-native re-design of `mme.getMME!`
+This is the JAX re-design of `mme.getMME!`
 (`/root/reference/src/mme.jl:50-605`): all one-time precomputation (cross
 products, Gram blocks, summary-stat offsets, hyper-parameters, mixture and
 annotation state) happens here on the host in float64, then is frozen into
@@ -31,7 +31,8 @@ from jax import lax
 from ..api import priors as P
 from ..api.spec import FixedTerm, MarkerTerm, ModelSpec, RandomTerm
 from ..data.regions import RegionInfo, build_regions
-from ..utils import cdiv, default_real_dtype
+from .. import backend
+from ..utils import HI, cdiv, default_real_dtype
 from .state import (
     CorrRandomState,
     FixedState,
@@ -86,13 +87,20 @@ class MarkerPlan:
     df: float
     weighted: bool
     n_lv_cov: int
-    use_pallas: bool = False  # route in-block scans through the TPU kernels
-    # virtual shards: V block chains advance per block-step (the on-chip
+    # in-block scan: "triton" (Pallas kernels, ops/gibbs_kernels.py) or
+    # "xla" (plain lax.scan); interpret runs the kernels in the Pallas
+    # interpreter (tests). Chosen by nextgp_tpu/backend.py.
+    route: str = "xla"
+    interpret: bool = False
+    # panel passes as fused multiply-and-reduce (GPU form) instead of a dot
+    # over the unpacked block (reference order, bit-identical across storage)
+    fused_passes: bool = False
+    # virtual shards: V block chains advance per block-step (the one-device
     # analog of the multi-device schedule; chains match a V-device run).
     # 1 = reference-sequential scan order.
     vshards: int = 1
     # 2-bit planar-packed genotype storage (ops/pack2.py): mt is uint8
-    # (..., B, q) with q = packed_q(n); cuts the per-sweep HBM traffic 4x.
+    # (..., B, q) with q = packed_q(n); cuts the per-sweep panel traffic 4x.
     # Lossless for 0..3 dosages, so the unpacked chain is reproduced exactly.
     packed: bool = False
 
@@ -337,22 +345,8 @@ def _pack_eligible(g) -> bool:
     return g.dtype == np.int8 and g.min() >= 0 and g.max() <= 3
 
 
-def _auto_vshards(nb: int) -> int:
-    """Tuned production V for an nb-block marker set on the TPU kernel path:
-    the overall max divisor of nb up to 144, with sublane alignment only as
-    a tie-break among near-max candidates (>= max/2). Preferring any %8
-    divisor outright mis-tunes nb = 8*prime (e.g. nb=232: V=8 instead of
-    V=116 -> 14x longer sequential chain per sweep)."""
-    cands = [v for v in range(1, min(nb, 144) + 1) if nb % v == 0]
-    top = max(cands)
-    near = [v for v in cands if 2 * v >= top]
-    pref = ([v for v in near if v % 8 == 0]
-            or [v for v in near if v % 2 == 0] or near)
-    return max(pref)
-
-
-def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, rng, use_pallas=False,
-                  vshards=1, pack=None):
+def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, rng, route="xla",
+                  interpret=False, vshards=1, pack=None):
     from ..ops import pack2
 
     md = term.data
@@ -360,10 +354,14 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, rng, use_pallas=Fal
     method = _method_of(prior)
     n, p = md.n_ind, md.n_snp
     block = min(block, max(8, 1 << (p - 1).bit_length()))  # don't over-pad tiny sets
+    if route == "triton" and block & (block - 1):
+        raise ValueError(
+            f"marker set {term.name}: the Triton scan kernels need a "
+            f"power-of-two block size (got {block})")
     p_pad = cdiv(p, block) * block
     nb = p_pad // block
 
-    # packed storage: auto-on for the TPU kernel path when lossless
+    # packed storage: the platform's default (backend.py) when lossless
     pre_packed = bool(getattr(md, "packed", False))
     if pre_packed:
         if pack is False:
@@ -373,7 +371,7 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, rng, use_pallas=Fal
             )
         do_pack = True
     else:
-        do_pack = bool(pack) if pack is not None else bool(use_pallas)
+        do_pack = bool(pack) if pack is not None else backend.default_pack()
         if do_pack and not _pack_eligible(md.genotypes):
             if pack:  # explicit request on non-0..3 dosages is an error
                 raise ValueError(
@@ -387,25 +385,7 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, rng, use_pallas=Fal
     # chain v owns the contiguous blocks [v*T, (v+1)*T); storage interleaves
     # so the sweep's scan step t slices chain-major (T, V, ...) tiles.
     if vshards == "auto":
-        # production default for the TPU kernel path: the largest divisor
-        # of nb up to 144, preferring sublane-aligned values — the
-        # sequential chain latency per sweep falls by V until the (V, B)
-        # tile stops fitting the VPU, and odd V tiles pad badly (measured
-        # on v5e at 50k x 590-599k: V=144 81.3 ms, V=180 83.7, V=96-ish
-        # schedule 87.3, V=117 (odd) 111.3). CPU/golden runs keep the
-        # reference-sequential order.
-        vshards = _auto_vshards(nb) if use_pallas else 1
-        if use_pallas and d_inv is not None and method in (METHOD_B, METHOD_C):
-            # weighted B/C thread TWO (B, V, B) Gram streams through the
-            # kernel; XLA's scoped-vmem budget (~65 MB) rejects V=96 at
-            # B=256 (73 MB demand measured). Cap the auto V so the twin
-            # grams stay ~40 MB; an explicit too-large vshards request is
-            # not capped here (it fails loudly at compile, and non-divisor
-            # values floor to the largest divisor with a warning below).
-            cap = max(1, (40 << 20) // (8 * block * block))
-            if vshards > cap:
-                cands = [v for v in range(1, min(nb, cap) + 1) if nb % v == 0]
-                vshards = max(cands) if cands else 1
+        vshards = backend.auto_vshards(nb)
     vsh = (
         max(v for v in range(1, int(vshards) + 1) if nb % v == 0)
         if vshards and vshards > 1
@@ -445,8 +425,7 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, rng, use_pallas=Fal
             center_full = jnp.concatenate([center_full, jnp.zeros((pad,), dtype)])
     elif isinstance(g, jax.Array):
         # device-resident genotypes (e.g. synthetic benches): blockify with
-        # jnp so nothing round-trips the host (the remote-device transfer is
-        # minutes at 600k-SNP scale). One fused jit builds the final storage
+        # jnp so nothing round-trips the host. One fused jit builds the final storage
         # layout directly — transpose/pad/relayout collapse into a single
         # copy, so peak HBM is input + output (an eager pipeline of these
         # steps OOMs at 50k x 75k: three 3.7 GB transients).
@@ -491,9 +470,11 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, rng, use_pallas=Fal
         center_store = center_nb
     di_dev = None if d_inv is None else jnp.asarray(d_inv, dtype)
 
-    # centered Gram blocks computed on-device (MXU): host f64 matmuls take
+    # centered Gram blocks computed on-device: host f64 matmuls take
     # minutes at production scale. Under x64 (tests) this is still exact
-    # f64. Mapped over single (B, n) blocks regardless of layout so the f32
+    # f64; f32 products are pinned to full precision (no TF32), since the
+    # blocked-Gram identity needs the Gram and the panel passes to agree.
+    # Mapped over single (B, n) blocks regardless of layout so the f32
     # transient stays ~B*n.
     @jax.jit
     def _grams(mt_s, cb_s):
@@ -506,8 +487,8 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, rng, use_pallas=Fal
             else:
                 mtf = mtb.astype(dtype)
             mcb = mtf - cbb[:, None]
-            gw = (mcb * di_dev) @ mcb.T if di_dev is not None else mcb @ mcb.T
-            gr = mcb @ mcb.T if di_dev is not None else gw
+            gr = jnp.matmul(mcb, mcb.T, precision=HI)
+            gw = jnp.matmul(mcb * di_dev, mcb.T, precision=HI) if di_dev is not None else gr
             return gw, gr
         return lax.map(one, (mt_s.reshape(nb, block, -1), cb_s.reshape(nb, block)))
 
@@ -685,7 +666,9 @@ def _build_marker(term: MarkerTerm, d_inv, ss, block, dtype, rng, use_pallas=Fal
         df=df,
         weighted=d_inv is not None,
         n_lv_cov=n_lv_cov,
-        use_pallas=use_pallas,
+        route=route,
+        interpret=interpret,
+        fused_passes=backend.fused_passes(route),
         vshards=vsh,
         packed=do_pack,
     )
@@ -699,7 +682,7 @@ def _build_corr_marker(term, block, dtype, vshards=1):
     vshards: V > 1 runs the V-wide block-synchronous schedule (chain v owns
     contiguous blocks [v*T, (v+1)*T)), identical to a V-device sharded run —
     "auto" resolves to 1 (sequential reference order; the corr path has no
-    Pallas kernel yet, so there is no tuned on-chip V)."""
+    scan kernel, so there is no tuned V)."""
     from ..api.priors import BayesPR
     from .state import CorrMarkerState
 
@@ -790,7 +773,7 @@ def _build_corr_marker(term, block, dtype, vshards=1):
             else:
                 mtf = mtb.astype(dtype)
             mcb = mtf - cbb[..., None]
-            return jnp.einsum("ltn,mun->lmtu", mcb, mcb)
+            return jnp.einsum("ltn,mun->lmtu", mcb, mcb, precision=HI)
         return lax.map(one, (mt_d, cb_d))
 
     gram = grams(mt_dev, cb_dev)  # (nb, B, B, nT, nT)
@@ -818,35 +801,33 @@ def assemble(
     spec: ModelSpec,
     dtype=None,
     block_size: Optional[int] = None,
-    use_pallas: Optional[bool] = None,
     vshards: Union[int, str] = 1,
     pack2: Optional[bool] = None,
+    route: Optional[str] = None,
+    interpret: bool = False,
 ):
     """Build (SweepPlan, ModelState) from a validated ModelSpec.
 
-    use_pallas: None -> auto (on when the default backend is TPU). The
-    Pallas path samples the same chain as the pure-JAX path from the same
-    random streams (up to f32 associativity).
+    vshards: V > 1 advances V marker blocks per block-step on one device
+    (the same schedule a V-device sharded run uses; cuts the sequential
+    chain length per sweep by V). The per-draw chain then differs from the
+    V=1 reference-sequential order, so golden tests keep V=1; posterior
+    moments are unaffected. "auto" picks the platform's value
+    (`backend.auto_vshards`: 1 on the CPU).
 
-    vshards: V > 1 advances V marker blocks per block-step on one chip (the
-    same schedule a V-device sharded run uses; fills the VPU sublanes and
-    cuts the sequential chain length per sweep by V). The per-draw chain
-    then differs from the V=1 reference-sequential order, so golden tests
-    keep V=1; posterior moments are unaffected. "auto" picks the tuned
-    production value on the TPU kernel path (largest divisor of the block
-    count up to 144, sublane-aligned among near-max candidates; measured
-    on v5e at 50k x 590k: V=144 81.3 ms/sweep vs V=180 83.7, odd V=117
-    111.3) and 1 elsewhere.
+    pack2: None -> the platform's default storage (`backend.default_pack`:
+    2-bit planar on the GPU, int8 elsewhere) whenever dosages are 0..3;
+    True forces it (errors on non-packable dosages), False keeps int8.
+    Packing is lossless, so the sampled chain is unchanged.
 
-    pack2: None -> auto (2-bit planar genotype storage whenever the TPU
-    kernel path is on and dosages are 0..3); True forces it (errors on
-    non-packable dosages), False keeps int8 storage. Packing is lossless,
-    so the sampled chain is unchanged; it cuts marker-pass HBM traffic 4x.
+    route: the in-block scan route, "triton" or "xla" (None: the platform's,
+    `backend.kernel_route`); interpret=True runs the Triton kernels in the
+    Pallas interpreter. Both routes sample the same chain from the same
+    random streams, up to f32 rounding.
     """
     spec.validate()
     dtype = jnp.dtype(dtype or default_real_dtype())
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    route = backend.resolve_route(route, interpret)
     rng = np.random.default_rng(20240509)
 
     y = np.asarray(spec.y, dtype=np.float64).ravel()
@@ -890,7 +871,7 @@ def assemble(
     for t in spec.markers:
         st, pl = _build_marker(
             t, d_inv, spec.summary_stats.get(t.name), bs, dtype, rng,
-            use_pallas=use_pallas, vshards=vshards, pack=pack2,
+            route=route, interpret=interpret, vshards=vshards, pack=pack2,
         )
         marker_states.append(st)
         marker_plans.append(pl)

@@ -4,8 +4,8 @@ methods (sampleBayesPR!/B!/C!/R!/RCpi!/RCplus!/LV!, functions.jl:118-486).
 The re-architecture (SURVEY.md §7.4, hard part #1): the reference's per-locus
 loop touches the n-vector ycorr three times per locus (axpy-in, dot,
 axpy-out — functions.jl:128-133), which is sequential BLAS-1. Here each
-block of B loci interacts with ycorr only twice per block via matrix
-products (MXU work):
+block of B loci interacts with ycorr only twice per block, through two
+passes over the block's panel rows:
 
     r0 = Mc_blk @ ycorr                    # before the block
     ycorr += u @ Mc_blk                    # after the block
@@ -28,12 +28,11 @@ replicated; the per-block correction and every cross-locus reduction
 (region sums, inclusion counts, class counts, LV moments) go through
 ctx.psum. Per-locus random streams are generated at GLOBAL length from the
 chain key and sliced per shard, so the same chain is sampled regardless of
-the shard count — except BayesRCpi's Dirichlet gammas, whose shape
-parameters are shard-local (annotation inputs); those fold the shard index
-into the key instead.
+the shard count (BayesRCpi's Dirichlet gammas included: their annotation
+inputs are replicated, so they too are drawn at global length).
 
 All randomness is pre-generated per sweep from counter-based keys
-(engine/rng.py) and consumed positionally, so the pure-JAX path, the Pallas
+(engine/rng.py) and consumed positionally, so the pure-JAX path, the Triton
 kernel path and the NumPy golden oracle share identical streams.
 """
 from __future__ import annotations
@@ -44,7 +43,7 @@ from jax import lax
 
 from ...ops import gibbs_kernels
 from ...ops.dists import categorical_from_probs, sample_beta_dist, sample_dirichlet
-from ...utils import replace
+from ...utils import HI, replace
 from ..sharding import UNSHARDED, ShardCtx
 from ..plan import (
     METHOD_B,
@@ -100,8 +99,8 @@ def _block_scan(gram_b, gram_raw_b, r0, r0_raw, beta_old_b, locus_xs, locus_fn, 
     def body(u, xsj):
         j, grow, graw, r0j, r0rj, bold, lx = xsj
         u = u.at[j].set(bold)
-        pre = r0j + grow @ u
-        pre_raw = (r0rj + graw @ u) if have_raw else pre
+        pre = r0j + jnp.dot(grow, u, precision=HI)
+        pre_raw = (r0rj + jnp.dot(graw, u, precision=HI)) if have_raw else pre
         bnew, out = locus_fn(pre, pre_raw, bold, lx)
         u = u.at[j].set(bold - bnew)
         return u, (bnew, out)
@@ -109,10 +108,6 @@ def _block_scan(gram_b, gram_raw_b, r0, r0_raw, beta_old_b, locus_xs, locus_fn, 
     u0 = jnp.zeros((B,), dtype)
     u, (beta_new, outs) = lax.scan(body, u0, xs)
     return u, beta_new, outs
-
-
-def _interpret_pallas() -> bool:
-    return jax.default_backend() != "tpu"
 
 
 def _gram_raw_diag(ms):
@@ -125,194 +120,147 @@ def _gram_raw_diag(ms):
     return jnp.swapaxes(d, 0, 1).reshape(-1)  # global block g = v*T + t
 
 
+def _panel_passes(packed, n_real, dtype, fused):
+    """(gather, scatter) over one step's (rows, ncol) panel slice:
+    gather(mtb, y) = M_blk @ y (rows,), scatter(mtb, u) = u @ M_blk (n,).
+
+    fused (the GPU form): one multiply-and-reduce per pass that reads the
+    int8 or packed bytes once (ops/pack2.gather/scatter). Otherwise a dot
+    over the unpacked block: packed and int8 storage then run the same
+    product on the same values, so their chains are bit-identical (what
+    the CPU tests pin)."""
+    from ...ops import pack2
+
+    if fused:
+        if packed:
+            return pack2.gather, lambda mtb, u: pack2.scatter(mtb, u, n_real)
+        return (lambda mtb, y: jnp.sum(mtb.astype(dtype) * y, axis=-1),
+                lambda mtb, u: jnp.sum(mtb.astype(dtype) * u[:, None], axis=0))
+
+    def dense(mtb):
+        return pack2.unpack2(mtb, dtype)[:, :n_real] if packed else mtb.astype(dtype)
+
+    return (lambda mtb, y: jnp.matmul(dense(mtb), y, precision=HI),
+            lambda mtb, u: jnp.matmul(u, dense(mtb), precision=HI))
+
+
 def _blocked_sweep(ms, ycorr, d_inv, locus_fn, locus_xs, dtype, need_raw, ctx,
-                   scan_impl=None, vshards=1, scan_impl_v=None):
+                   fused=False, kernel=None, coefs=()):
     """Outer scan over (local) marker blocks; carries the replicated ycorr.
 
-    scan_impl overrides the in-block scan (the Pallas kernel path); default
-    wraps the pure-JAX _block_scan around locus_fn.
-
-    vshards=V > 1 advances V block chains per step (virtual shards): shard v
-    owns the contiguous blocks [v*T, (v+1)*T), T = nb/V, and the residual
-    synchronizes at block-step boundaries — the on-chip analog of the
-    multi-device schedule in parallel/sharded.py. The per-draw chain matches
-    a V-device run, not the V=1 sequential order. scan_impl then receives
-    (V, B, ...) arguments and must return (V, B)-shaped results; outputs are
+    Virtual shards: with V block chains per step (storage mt (T, V, B, n)),
+    shard v owns the contiguous blocks [v*T, (v+1)*T), T = nb/V, and the
+    residual synchronizes at block-step boundaries — the one-device analog
+    of the multi-device schedule in parallel/sharded.py. The per-draw chain
+    matches a V-device run, not the V=1 sequential order. Outputs are
     re-ordered back to the global flat locus order before returning.
 
-    Packed storage (mt uint8, ops/pack2.py): the residual is carried padded
-    to n4 = 4*q for the planar kernels; padded entries are genotype-0 and
-    kept pinned at zero, so sums and gathers over the padded vector equal
-    the unpadded ones. On TPU/f32 the gather/scatter go through the Pallas
-    packed kernels; elsewhere an exact jnp unpack reproduces the unpacked
-    chain bit-for-bit.
+    kernel (the Triton route): kernel(gram, graw, t, r0, r0_raw, *coefs) ->
+    (u, beta_new, outs), all (V, B, ...), with the Gram streams locus-major
+    (T, B, V, B) and each coefficient array (T, V, B, ...) indexed by the
+    block step t inside the kernel; coefs arrive here in flat locus order.
+    Plain V=1 storage runs through the same frame as V=1. Without a kernel
+    the in-block scan is the plain `_block_scan` around locus_fn.
     """
     use_raw = need_raw and d_inv is not None
-
-    if scan_impl is None:
-        def scan_impl(gramb, grawb, r0, r0_raw, beta_old_b, lxs):
-            return _block_scan(gramb, grawb, r0, r0_raw, beta_old_b, lxs,
-                               locus_fn, dtype)
-
     graw = ms.gram_raw if ms.gram_raw is not None else ms.gram
-    nb = ms.mpm.shape[0]
+    nb, B = ms.mpm.shape
     # V is derived from the STORAGE layout, not the plan: mt is (nb, B, n)
     # in plain layout and (T, V, B, n) in vshard layout. Under shard_map the
     # vshard axis is split across devices, so the local V here is the
     # per-device share V_total / n_shards (possibly 1) while mp.vshards
     # stays global — the storage shape is the single source of truth.
     V = ms.mt.shape[1] if ms.mt.ndim == 4 else 1
-
-    packed = ms.mt.dtype == jnp.uint8
+    T = nb // V
     n_real = ycorr.shape[0]
-    padn = 0
-    step_kern = False
-    if packed:
-        from ...ops import pack2
+    gather, scatter = _panel_passes(ms.mt.dtype == jnp.uint8, n_real, dtype, fused)
 
-        n4 = 4 * ms.mt.shape[-1]
-        kern = dtype == jnp.float32 and not _interpret_pallas()
-        if kern:
-            # kernel path: carry the residual padded to n4 (pads are
-            # genotype-0 and pinned at zero, so sums/gathers are unchanged)
-            padn = n4 - n_real
-            if padn:
-                ycorr = jnp.concatenate([ycorr, jnp.zeros((padn,), dtype)])
-                if d_inv is not None:
-                    d_inv = jnp.concatenate([d_inv, jnp.zeros((padn,), dtype)])
-                pad_mask = jnp.arange(n4) < n_real
-
-            # step-indexed kernels: the scan carries only the step index;
-            # the pallas BlockSpec offsets its DMA into the full panel, so
-            # the per-step (rows, q) slice is never materialized (an extra
-            # read+write pass over the whole panel per sweep otherwise)
-            step_kern = True
-            rows = V * ms.mpm.shape[1] if ms.mt.ndim == 4 else ms.mpm.shape[1]
-            mt_rows = ms.mt.reshape(-1, ms.mt.shape[-1])
-
-            def gather(tb, yv):  # step index @ padded (n4,) -> (rows,)
-                return pack2.matvec_step(
-                    mt_rows, tb, pack2.y_planar(yv), rows).astype(dtype)
-
-            def scatter(tb, u):  # u (rows,) -> (n4,)
-                return pack2.rank_update_step(
-                    mt_rows, tb, u.astype(jnp.float32))[:4].reshape(-1).astype(dtype)
+    def project(mtb, cb, ycorr):  # r0 (and raw r0) of one step's rows
+        if d_inv is not None:
+            yw = d_inv * ycorr
+            r0 = gather(mtb, yw) - cb * jnp.sum(yw)
+            r0_raw = (gather(mtb, ycorr) - cb * jnp.sum(ycorr)) if use_raw else None
         else:
-            # fallback: unpack sliced to n so the matmul is the exact
-            # unpacked computation (same shapes => same reduction order,
-            # bit-identical to int8 storage — what the golden tests pin)
-            def gather(mtb2, yv):
-                return pack2.unpack2(mtb2, dtype)[:, :n_real] @ yv
+            r0 = gather(mtb, ycorr) - cb * jnp.sum(ycorr)
+            r0_raw = None
+        return r0, r0_raw
 
-            def scatter(mtb2, u):
-                return u @ pack2.unpack2(mtb2, dtype)[:, :n_real]
-    else:
-        def gather(mtb2, yv):
-            return mtb2 @ yv
+    def group(a):  # flat (nb*B, ...) or (nb, B, ...) -> (T, V, B, ...), g = v*T + t
+        a = a.reshape((V, T, B) + a.shape[1 if a.shape[0] == nb * B else 2:])
+        return jnp.swapaxes(a, 0, 1)
 
-        def scatter(mtb2, u):
-            return u @ mtb2
+    def ungroup(a):  # (T, V, B, ...) -> global flat (nb*B, ...)
+        return jnp.swapaxes(a, 0, 1).reshape((nb * B,) + a.shape[3:])
 
-    def finish(yc):
-        return yc[:n_real] if padn else yc
+    if kernel is not None:
+        mt4 = ms.mt if ms.mt.ndim == 4 else ms.mt[:, None]
+        cen = ms.center.reshape(T, V, B)
 
-    def clip_corr(c):  # keep padded residual entries pinned at zero
-        if padn:
-            return jnp.where(pad_mask, c, 0.0)
-        return c
+        def locus_major(g):  # (nb, B, B) plain layout is (T, B, 1, B)
+            return g if g.ndim == 4 else g[:, :, None, :]
+
+        gram4 = locus_major(ms.gram)
+        graw4 = locus_major(graw) if use_raw else None
+        coefs4 = tuple(group(c) for c in coefs)
+
+        def step_body(ycorr, xs):
+            t, mtb, cb = xs
+            rows = mtb.reshape(V * B, mtb.shape[-1])
+            r0, r0_raw = project(rows, cb.reshape(-1), ycorr)
+            u, beta_new_b, outs = kernel(
+                gram4, graw4, t, r0.reshape(V, B),
+                None if r0_raw is None else r0_raw.reshape(V, B), *coefs4)
+            correction = scatter(rows, u.reshape(-1)) - jnp.vdot(u, cb)
+            return ycorr + ctx.psum(correction), (beta_new_b, outs)
+
+        ycorr, (beta_new, outs) = lax.scan(
+            step_body, ycorr, (jnp.arange(T, dtype=jnp.int32), mt4, cen))
+        return ycorr, ungroup(beta_new), jax.tree.map(ungroup, outs)
+
+    def scan_impl(gramb, grawb, r0, r0_raw, beta_old_b, lxs):
+        return _block_scan(gramb, grawb, r0, r0_raw, beta_old_b, lxs, locus_fn, dtype)
 
     if ms.mt.ndim == 3:
-        nb3 = ms.mt.shape[0]
-        mt_leaf = jnp.arange(nb3, dtype=jnp.int32) if step_kern else ms.mt
-        leaves = (mt_leaf, ms.center, ms.gram, graw,
-                  ms.beta.reshape(ms.mpm.shape), locus_xs)
+        leaves = (ms.mt, ms.center, ms.gram, graw, ms.beta.reshape(ms.mpm.shape), locus_xs)
 
         def block_body(ycorr, xs):
             mtb, cb, gramb, grawb, beta_old_b, lxs = xs
-            mtf = mtb if packed else mtb.astype(dtype)
-            if d_inv is not None:
-                yw = d_inv * ycorr
-                r0 = gather(mtf, yw) - cb * jnp.sum(yw)
-                r0_raw = (gather(mtf, ycorr) - cb * jnp.sum(ycorr)) if use_raw else None
-            else:
-                r0 = gather(mtf, ycorr) - cb * jnp.sum(ycorr)
-                r0_raw = None
+            r0, r0_raw = project(mtb, cb, ycorr)
             u, beta_new_b, outs = scan_impl(
                 gramb, grawb if use_raw else None, r0, r0_raw, beta_old_b, lxs)
-            correction = clip_corr(scatter(mtf, u) - jnp.dot(u, cb))
-            ycorr = ycorr + ctx.psum(correction)
-            return ycorr, (beta_new_b, outs)
+            correction = scatter(mtb, u) - jnp.dot(u, cb)
+            return ycorr + ctx.psum(correction), (beta_new_b, outs)
 
         ycorr, (beta_new, outs) = lax.scan(block_body, ycorr, leaves)
-        return finish(ycorr), beta_new.reshape(-1), outs
+        return ycorr, beta_new.reshape(-1), outs
 
     # ---- virtual-shard path. Storage layouts (engine/plan.py): mt
     # (T, V, B, n), center (T, V, B), gram/gram_raw locus-major (T, B, V, B).
     # Small per-sweep arrays are re-grouped here (cheap); the big leaves are
     # consumed as pure scan slices.
-    T = nb // V
-    B = ms.mpm.shape[1]
-    ncol = ms.mt.shape[-1]
-
-    def group(a):  # (nb, B, ...) -> (T, V, B, ...), block g = v*T + t
-        return jnp.swapaxes(a.reshape((V, T) + a.shape[1:]), 0, 1)
-
-    beta_g = group(ms.beta.reshape(nb, B))
+    beta_g = group(ms.beta)
     lxs_g = jax.tree.map(group, locus_xs)
 
     def vscan(gram_t, graw_t, r0, r0_raw, beta_old_b, lxs):
         # gram_t is locus-major (B, V, B): vmap over the shard axis 1
-        def one(g, gr, r, rr, bo, lx):
-            return scan_impl(g, gr, r, rr, bo, lx)
-
         in2 = 1 if graw_t is not None else None
         in4 = 0 if r0_raw is not None else None
-        return jax.vmap(one, in_axes=(1, in2, 0, in4, 0, 0))(
+        return jax.vmap(scan_impl, in_axes=(1, in2, 0, in4, 0, 0))(
             gram_t, graw_t, r0, r0_raw, beta_old_b, lxs)
 
-    # Gram step-indexing: with the pallas scan kernels and step-indexed
-    # panel kernels active, the Gram also stays out of the scan leaves —
-    # the kernel DMAs step t's (B, V, B) block from the full (T, B, V, B)
-    # array via a scalar-prefetch index (no per-step slice copy). The
-    # pure-JAX vscan fallback still needs actual slices.
-    gram_step = step_kern and scan_impl_v is not None
-
-    def block_body(ycorr, xs):
+    def vblock_body(ycorr, xs):
         mtb, cb, gram_t, graw_t, beta_old_b, lxs = xs
-        if step_kern:
-            mtf = mtb  # step index; the kernels DMA from the full panel
-        else:
-            mtf = mtb.reshape(V * B, ncol) if packed else mtb.astype(dtype).reshape(V * B, ncol)
-        if gram_step:
-            gram_t = (ms.gram, mtb)
-            if use_raw:  # weighted: raw Gram stream step-indexed identically
-                graw_t = (graw, mtb)
-        if d_inv is not None:
-            yw = d_inv * ycorr
-            r0 = gather(mtf, yw).reshape(V, B) - cb * jnp.sum(yw)
-            r0_raw = (gather(mtf, ycorr).reshape(V, B) - cb * jnp.sum(ycorr)) if use_raw else None
-        else:
-            r0 = gather(mtf, ycorr).reshape(V, B) - cb * jnp.sum(ycorr)
-            r0_raw = None
-        impl = scan_impl_v if scan_impl_v is not None else vscan
-        u, beta_new_b, outs = impl(
-            gram_t, graw_t if use_raw else None, r0, r0_raw, beta_old_b, lxs)
-        correction = clip_corr(scatter(mtf, u.reshape(-1)) - jnp.vdot(u, cb))
-        ycorr = ycorr + ctx.psum(correction)
-        return ycorr, (beta_new_b, outs)
+        rows = mtb.reshape(V * B, mtb.shape[-1])
+        r0, r0_raw = project(rows, cb.reshape(-1), ycorr)
+        u, beta_new_b, outs = vscan(
+            gram_t, graw_t if use_raw else None, r0.reshape(V, B),
+            None if r0_raw is None else r0_raw.reshape(V, B), beta_old_b, lxs)
+        correction = scatter(rows, u.reshape(-1)) - jnp.vdot(u, cb)
+        return ycorr + ctx.psum(correction), (beta_new_b, outs)
 
-    mt_leaf = jnp.arange(T, dtype=jnp.int32) if step_kern else ms.mt
-    placeholder = jnp.zeros((T, 1), jnp.int8)
-    gram_leaf = placeholder if gram_step else ms.gram
-    graw_leaf = placeholder if gram_step else graw
-    xs = (mt_leaf, ms.center, gram_leaf, graw_leaf, beta_g, lxs_g)
-    ycorr, (beta_new, outs) = lax.scan(block_body, ycorr, xs)
-    # (T, V, B, ...) -> global flat order (shard-major: v*T + t)
-    beta = jnp.swapaxes(beta_new, 0, 1).reshape(-1)
-    outs = jax.tree.map(
-        lambda a: jnp.swapaxes(a, 0, 1).reshape((nb * B,) + a.shape[3:]), outs
-    )
-    return finish(ycorr), beta, outs
+    xs = (ms.mt, ms.center, ms.gram, graw, beta_g, lxs_g)
+    ycorr, (beta_new, outs) = lax.scan(vblock_body, ycorr, xs)
+    return ycorr, ungroup(beta_new), jax.tree.map(ungroup, outs)
 
 
 # ------------------------------------------------------------------ BayesPR
@@ -336,28 +284,19 @@ def _gauss_effect_sweep(ms, mp: MarkerPlan, ycorr, var_e, d_inv, ctx, z,
         bnew = rhs / lhs + zj * jnp.sqrt(1.0 / lhs)
         return jnp.where(maskj, bnew, 0.0), None
 
-    scan_impl = scan_impl_v = None
-    if mp.use_pallas:
-        interp = _interpret_pallas()
-        pk = gibbs_kernels.gauss_block_pack(
-            jnp.zeros((p_l,), dtype), ms.beta, z, ivb_locus,
-            ms.mpm.reshape(-1), ms.lhs_ss.reshape(-1), ms.rhs_ss.reshape(-1),
-            ms.mask.reshape(-1), ive)
-        lxs = (pk.reshape(nb_l, mp.block, -1),)
+    kernel, coefs = None, ()
+    if mp.route == "triton":
+        coefs = (gibbs_kernels.gauss_block_pack(
+            ms.beta, z, ivb_locus, ms.mpm.reshape(-1), ms.lhs_ss.reshape(-1),
+            ms.rhs_ss.reshape(-1), ms.mask.reshape(-1), ive),)
 
-        def scan_impl(gramb, grawb, r0, r0r, bold, lx):
-            pk_b = lx[0].at[:, 0].add(r0.astype(jnp.float32))
-            beta_new, u = gibbs_kernels.gauss_block_scan(gramb, pk_b, interpret=interp)
-            return u.astype(dtype), beta_new.astype(dtype), None
-
-        def scan_impl_v(gramb, grawb, r0, r0r, bold, lx):
-            pk_b = lx[0].at[:, :, 0].add(r0.astype(jnp.float32))
-            beta_new, u = gibbs_kernels.gauss_block_scan_v(gramb, pk_b, interpret=interp)
+        def kernel(gram, graw, t, r0, r0r, head):
+            beta_new, u = gibbs_kernels.gauss_block_scan(
+                gram, t, r0, head, interpret=mp.interpret)
             return u.astype(dtype), beta_new.astype(dtype), None
 
     ycorr, beta, _ = _blocked_sweep(ms, ycorr, d_inv, locus_fn, lxs, dtype, False, ctx,
-                                    scan_impl=scan_impl, vshards=mp.vshards,
-                                    scan_impl_v=scan_impl_v)
+                                    mp.fused_passes, kernel, coefs)
     return ycorr, beta
 
 
@@ -425,43 +364,24 @@ def _sweep_bc(key, ms, mp: MarkerPlan, ycorr, var_e, d_inv, common: bool, ctx):
         bnew = jnp.where(inc & maskj, b_inc, 0.0)
         return bnew, (inc & maskj)
 
-    scan_impl = scan_impl_v = None
-    if mp.use_pallas:
-        interp = _interpret_pallas()
+    kernel, coefs = None, ()
+    if mp.route == "triton":
         weighted = d_inv is not None
-        pk = gibbs_kernels.bc_block_pack(
+        coefs = (gibbs_kernels.bc_block_pack(
             ms.beta, z, unif, vb_locus, ivb_locus,
             ms.mpm.reshape(-1), ms.lhs_ss.reshape(-1), ms.rhs_ss.reshape(-1),
             ms.mask.reshape(-1), ive, var_e, lp0, lp1, common,
-            mpm_raw=_gram_raw_diag(ms) if weighted else None)
-        lxs = (pk.reshape(nb_l, mp.block, -1),)
+            mpm_raw=_gram_raw_diag(ms) if weighted else None),)
 
-        # weighted "D": weighted Gram drives rhs, raw Gram drives the
-        # indicator's rrr (functions.jl:168; mme.jl:71-75) — the weighted
-        # kernels take a second Gram stream and read slot 7 as r0_raw
-        def _impl(batched):
-            def run(gramb, grawb, r0, r0r, bold, lx):
-                sl = (slice(None), slice(None)) if batched else (slice(None),)
-                pk_b = lx[0].at[sl + (0,)].add(r0.astype(jnp.float32))
-                if weighted:
-                    pk_b = pk_b.at[sl + (7,)].add(r0r.astype(jnp.float32))
-                    kern = (gibbs_kernels.bc_block_scan_wv if batched
-                            else gibbs_kernels.bc_block_scan_w)
-                    beta_new, u, delta = kern(gramb, grawb, pk_b, interpret=interp)
-                else:
-                    kern = (gibbs_kernels.bc_block_scan_v if batched
-                            else gibbs_kernels.bc_block_scan)
-                    beta_new, u, delta = kern(gramb, pk_b, interpret=interp)
-                return u.astype(dtype), beta_new.astype(dtype), delta > 0
-
-            return run
-
-        scan_impl = _impl(batched=False)
-        scan_impl_v = _impl(batched=True)
+        # weighted "D": the weighted Gram drives rhs, the raw Gram the
+        # indicator's rrr (functions.jl:168; mme.jl:71-75)
+        def kernel(gram, graw, t, r0, r0r, head):
+            beta_new, u, delta = gibbs_kernels.bc_block_scan(
+                gram, t, r0, head, graw=graw, r0_raw=r0r, interpret=mp.interpret)
+            return u.astype(dtype), beta_new.astype(dtype), delta > 0
 
     ycorr, beta, inc = _blocked_sweep(ms, ycorr, d_inv, locus_fn, lxs, dtype, True, ctx,
-                                      scan_impl=scan_impl, vshards=mp.vshards,
-                                      scan_impl_v=scan_impl_v)
+                                      mp.fused_passes, kernel, coefs)
     delta = inc.reshape(-1).astype(jnp.int32)
     n_in = ctx.psum(jnp.sum(delta))
 
@@ -521,29 +441,19 @@ def _sweep_r(key, ms, mp: MarkerPlan, ycorr, var_e, d_inv, ctx):
         delta = jnp.where(maskj, cls + 1, 0)
         return bnew, delta.astype(jnp.int32)
 
-    scan_impl = scan_impl_v = None
-    if mp.use_pallas:
-        interp = _interpret_pallas()
-        pk = gibbs_kernels.r_block_pack(
+    kernel, coefs = None, ()
+    if mp.route == "triton":
+        coefs = gibbs_kernels.r_block_pack(
             ms.beta, z, unif, ms.mpm.reshape(-1), ms.lhs_ss.reshape(-1),
             ms.rhs_ss.reshape(-1), ms.mask.reshape(-1), varc, log_pi, ive, var_e)
-        lxs = (pk.reshape(nb_l, mp.block, -1),)
 
-        def scan_impl(gramb, grawb, r0, r0r, bold, lx):
-            pk_b = lx[0].at[:, 0].add(r0.astype(jnp.float32))
+        def kernel(gram, graw, t, r0, r0r, head, cls):
             beta_new, u, delta = gibbs_kernels.r_block_scan(
-                gramb, pk_b, K, interpret=interp)
-            return u.astype(dtype), beta_new.astype(dtype), delta
-
-        def scan_impl_v(gramb, grawb, r0, r0r, bold, lx):
-            pk_b = lx[0].at[:, :, 0].add(r0.astype(jnp.float32))
-            beta_new, u, delta = gibbs_kernels.r_block_scan_v(
-                gramb, pk_b, K, interpret=interp)
+                gram, t, r0, head, cls, K, interpret=mp.interpret)
             return u.astype(dtype), beta_new.astype(dtype), delta
 
     ycorr, beta, delta_b = _blocked_sweep(ms, ycorr, d_inv, locus_fn, lxs, dtype, False, ctx,
-                                          scan_impl=scan_impl, vshards=mp.vshards,
-                                          scan_impl_v=scan_impl_v)
+                                          mp.fused_passes, kernel, coefs)
     delta = delta_b.reshape(-1)
     cls0 = jnp.clip(delta - 1, 0, K - 1)
     vsel = ms.v_class[cls0]
@@ -624,33 +534,22 @@ def _sweep_rcpi(key, ms, mp: MarkerPlan, ycorr, var_e, d_inv, ctx):
         acat = jnp.where(maskj, a_sel + 1, 0).astype(jnp.int32)
         return bnew, (delta, acat, aprob_new)
 
-    scan_impl = scan_impl_v = None
-    if mp.use_pallas:
-        interp = _interpret_pallas()
-        pk = gibbs_kernels.rcpi_block_pack(
+    kernel, coefs = None, ()
+    if mp.route == "triton":
+        coefs = gibbs_kernels.rcpi_block_pack(
             ms.beta, z, unif_a, unif_v, g1.reshape(p_l, nA), g2.reshape(p_l, nA),
             ms.annot_prob.reshape(p_l, nA), ms.annot_nz.reshape(p_l, nA),
             ms.mpm.reshape(-1), ms.lhs_ss.reshape(-1), ms.rhs_ss.reshape(-1),
             ms.mask.reshape(-1), varc, log_pi, ive, var_e)
-        lxs = (pk.reshape(nb_l, mp.block, -1),)
 
-        def scan_impl(gramb, grawb, r0, r0r, bold, lx):
-            pk_b = lx[0].at[:, 0].add(r0.astype(jnp.float32))
+        def kernel(gram, graw, t, r0, r0r, head, cls, ann):
             beta_new, u, delta, acat, aprob = gibbs_kernels.rcpi_block_scan(
-                gramb, pk_b, nA, K, interpret=interp)
-            return u.astype(dtype), beta_new.astype(dtype), (
-                delta, acat, aprob.astype(dtype))
-
-        def scan_impl_v(gramb, grawb, r0, r0r, bold, lx):
-            pk_b = lx[0].at[:, :, 0].add(r0.astype(jnp.float32))
-            beta_new, u, delta, acat, aprob = gibbs_kernels.rcpi_block_scan_v(
-                gramb, pk_b, nA, K, interpret=interp)
+                gram, t, r0, head, cls, ann, nA, K, interpret=mp.interpret)
             return u.astype(dtype), beta_new.astype(dtype), (
                 delta, acat, aprob.astype(dtype))
 
     ycorr, beta, outs = _blocked_sweep(ms, ycorr, d_inv, locus_fn, lxs, dtype, False, ctx,
-                                       scan_impl=scan_impl, vshards=mp.vshards,
-                                       scan_impl_v=scan_impl_v)
+                                       mp.fused_passes, kernel, coefs)
     delta = outs[0].reshape(-1)
     acat = outs[1].reshape(-1)
     annot_prob = outs[2].reshape(p_l, nA)
@@ -742,33 +641,22 @@ def _sweep_rcplus(key, ms, mp: MarkerPlan, ycorr, var_e, d_inv, ctx):
             annot_step, init, (varc, log_pi, zj, uj, anzj))
         return bnew, (delta_j, cls_a, bs_a, nz_a)
 
-    scan_impl = scan_impl_v = None
-    if mp.use_pallas:
-        interp = _interpret_pallas()
-        pk = gibbs_kernels.rcplus_block_pack(
+    kernel, coefs = None, ()
+    if mp.route == "triton":
+        coefs = gibbs_kernels.rcplus_block_pack(
             ms.beta, z.reshape(p_l, nA), unif.reshape(p_l, nA),
             ms.annot_nz.reshape(p_l, nA), ms.mpm.reshape(-1),
             ms.lhs_ss.reshape(-1), ms.rhs_ss.reshape(-1), ms.mask.reshape(-1),
             varc, log_pi, ive, var_e)
-        lxs = (pk.reshape(nb_l, mp.block, -1),)
 
-        def scan_impl(gramb, grawb, r0, r0r, bold, lx):
-            pk_b = lx[0].at[:, 0].add(r0.astype(jnp.float32))
+        def kernel(gram, graw, t, r0, r0r, head, cls, ann):
             beta_new, u, delta, cls_a, bs_a, nz_a = gibbs_kernels.rcplus_block_scan(
-                gramb, pk_b, nA, K, interpret=interp)
-            return u.astype(dtype), beta_new.astype(dtype), (
-                delta, cls_a, bs_a.astype(dtype), nz_a > 0)
-
-        def scan_impl_v(gramb, grawb, r0, r0r, bold, lx):
-            pk_b = lx[0].at[:, :, 0].add(r0.astype(jnp.float32))
-            beta_new, u, delta, cls_a, bs_a, nz_a = gibbs_kernels.rcplus_block_scan_v(
-                gramb, pk_b, nA, K, interpret=interp)
+                gram, t, r0, head, cls, ann, nA, K, interpret=mp.interpret)
             return u.astype(dtype), beta_new.astype(dtype), (
                 delta, cls_a, bs_a.astype(dtype), nz_a > 0)
 
     ycorr, beta, outs = _blocked_sweep(ms, ycorr, d_inv, locus_fn, lxs, dtype, False, ctx,
-                                       scan_impl=scan_impl, vshards=mp.vshards,
-                                       scan_impl_v=scan_impl_v)
+                                       mp.fused_passes, kernel, coefs)
     delta = outs[0].reshape(-1)
     cls_a = outs[1].reshape(p_l, nA)
     bs_a = outs[2].reshape(p_l, nA)
@@ -892,12 +780,12 @@ def sample_corr_marker_set(key, ms, cp, ycorr, var_e, ctx: ShardCtx = UNSHARDED)
         else:
             mtf = mtb.astype(dtype)  # (B, nT, n)
         sumy = jnp.sum(ycorr)
-        r0 = jnp.einsum("ltn,n->lt", mtf, ycorr) - cb * sumy  # (B, nT)
+        r0 = jnp.einsum("ltn,n->lt", mtf, ycorr, precision=HI) - cb * sumy  # (B, nT)
 
         def body(u, xsj):
             j, r0j, bold, zj, ivbj, mpmj, maskj = xsj
             u = u.at[j].set(bold)
-            pre = r0j + jnp.einsum("buv,bv->u", gramb[j], u)
+            pre = r0j + jnp.einsum("buv,bv->u", gramb[j], u, precision=HI)
             lhs = mpmj * ive + ivbj
             cov = jnp.linalg.inv(lhs)
             cov = (cov + jnp.swapaxes(cov, -1, -2)) / 2.0
@@ -911,7 +799,8 @@ def sample_corr_marker_set(key, ms, cp, ycorr, var_e, ctx: ShardCtx = UNSHARDED)
         u, beta_new_b = lax.scan(
             body, u0,
             (jnp.arange(cp.block), r0, bold_b, zjb, ivbb, mpmb, maskb))
-        correction = jnp.einsum("lt,ltn->n", u, mtf) - jnp.einsum("lt,lt->", u, cb)
+        correction = (jnp.einsum("lt,ltn->n", u, mtf, precision=HI)
+                      - jnp.einsum("lt,lt->", u, cb))
         return correction, beta_new_b
 
     xs = (ms.mt, ms.center, ms.gram, ms.mpm, ms.mask,

@@ -4,7 +4,7 @@ their variance draws (sampleVarU/sampleCoVarU, functions.jl:498-506).
 The per-level loop is a Gauss–Seidel scan against the dense inverse
 structure (A^-1 / G^-1 / I); the structure row i is the scanned input so the
 whole update is one `lax.scan` over levels — sequential like the reference,
-but with the rhs dot on the VPU instead of BLAS-1.
+but with the rhs dot as one vector product instead of BLAS-1.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ...ops.dists import sample_inv_wishart, sample_scaled_inv_chi2
+from ...utils import HI
 
 
 def sample_random_uni(key, rs, ycorr, var_e, df):
@@ -23,28 +24,28 @@ def sample_random_uni(key, rs, ycorr, var_e, df):
     ive = 1.0 / var_e
     ivu = 1.0 / rs.var_u
 
-    ycorr = ycorr + rs.z @ rs.u
-    yi = (rs.zp @ ycorr) * ive  # functions.jl:61
+    ycorr = ycorr + jnp.matmul(rs.z, rs.u, precision=HI)
+    yi = jnp.matmul(rs.zp, ycorr, precision=HI) * ive  # functions.jl:61
 
     def body(u, xs):
         i, arow, zi = xs
         u = u.at[i].set(0.0)
-        rhs = yi[i] - ivu * jnp.dot(arow, u)  # functions.jl:65
+        rhs = yi[i] - ivu * jnp.dot(arow, u, precision=HI)  # functions.jl:65
         lhs = rs.zpz[i] * ive + arow[i] * ivu  # functions.jl:66
         ui = rhs / lhs + zi * jnp.sqrt(1.0 / lhs)
         return u.at[i].set(ui), None
 
     u, _ = lax.scan(body, rs.u, (jnp.arange(q), rs.ivstr, z))
-    ycorr = ycorr - rs.z @ u
+    ycorr = ycorr - jnp.matmul(rs.z, u, precision=HI)
 
-    ss = u @ rs.ivstr @ u
+    ss = jnp.dot(jnp.matmul(u, rs.ivstr, precision=HI), u, precision=HI)
     var_u = sample_scaled_inv_chi2(kv, df, rs.scale, ss, float(q))  # functions.jl:498-501
     return u, var_u, ycorr
 
 
 def sample_random_cg(key, rs, ycorr, var_e, df, plan, d_inv=None):
     """Exact joint MvNormal draw of u | rest by perturbed conjugate gradient
-    (matrix-free; TPU-native replacement of the per-level scan for large q).
+    (matrix-free replacement of the per-level scan for large q).
 
     With C = Z'D^-1 Z / ve + K / vu (K = inverse structure), the draw
         u = C^-1 [ Z'D^-1 (ycorr + e1) / ve + s ],
@@ -101,7 +102,7 @@ def sample_random_cg(key, rs, ycorr, var_e, df, plan, d_inv=None):
     u, _, _ = cg_solve(matvec, rhs, x0=rs.u, tol=plan.cg_tol, max_iter=plan.cg_iters)
     ycorr = ycorr - Z(u)
 
-    ss = u @ ivmul(u)
+    ss = jnp.dot(u, ivmul(u), precision=HI)
     var_u = sample_scaled_inv_chi2(kv, df, rs.scale, ss, float(q))
     return u, var_u, ycorr
 
@@ -114,8 +115,8 @@ def sample_random_corr(key, rs, ycorr, var_e, df):
     z = jax.random.normal(kz, (q, n_t), rs.u.dtype)
 
     # restore all components (functions.jl:101-104)
-    ycorr = ycorr + jnp.einsum("tnl,tl->n", rs.zs, rs.u)
-    yi = jnp.einsum("tnl,n->tl", rs.zs, ycorr)  # per-level Z_l' ycorr
+    ycorr = ycorr + jnp.einsum("tnl,tl->n", rs.zs, rs.u, precision=HI)
+    yi = jnp.einsum("tnl,n->tl", rs.zs, ycorr, precision=HI)  # per-level Z_l' ycorr
     ivu = jnp.linalg.inv(rs.var_u)
 
     def body(u, xs):
@@ -136,5 +137,5 @@ def sample_random_corr(key, rs, ycorr, var_e, df):
     s = u @ rs.ivstr @ u.T + rs.scale
     var_u = sample_inv_wishart(kv, df + q, (s + s.T) / 2.0)
 
-    ycorr = ycorr - jnp.einsum("tnl,tl->n", rs.zs, u)
+    ycorr = ycorr - jnp.einsum("tnl,tl->n", rs.zs, u, precision=HI)
     return u, var_u, ycorr

@@ -1,6 +1,6 @@
 """ModelState pytrees — the device-resident Gibbs state.
 
-This is the TPU-native equivalent of the tuple `mme.getMME!` returns
+This is the device-resident equivalent of the tuple `mme.getMME!` returns
 (`/root/reference/src/mme.jl:603`): (ycorr, E, X, b, Z, u, varU, M, beta,
 varBeta, delta) frozen into NamedTuples. Here each effect family is a
 registered dataclass pytree; static shape/method facts live in the matching

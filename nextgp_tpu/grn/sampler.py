@@ -6,7 +6,7 @@ with gene-to-gene matrix Lambda1 (off-diagonals, Metropolis-Hastings with a
 |det(I - Lambda1)|^(N/2) Jacobian target) and SNP-to-gene effects Lambda2
 (single-site Gibbs over all SNPs per gene).
 
-TPU-native re-design: Lambda1's per-individual block design BIGM collapses
+Re-design for the device: Lambda1's per-individual block design BIGM collapses
 to dense algebra — the reference's regressors are the *initial* residual
 matrix (GRN.jl:98 builds BIGM from yCorr before sampling and never rebuilds
 it), so RHS over coefficient pairs (g,k) is (Ytil yCorr')[k,g] and

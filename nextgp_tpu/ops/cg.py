@@ -14,6 +14,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..utils import HI
+
 
 def cg_solve(
     matvec: Callable,
@@ -28,7 +30,7 @@ def cg_solve(
     r = b - matvec(x)
     z = precond(r) if precond else r
     p = z
-    rz = jnp.vdot(r, z)
+    rz = jnp.vdot(r, z, precision=HI)
     bnorm = jnp.linalg.norm(b)
 
     def cond(carry):
@@ -38,11 +40,11 @@ def cg_solve(
     def body(carry):
         x, r, p, rz, it = carry
         ap = matvec(p)
-        alpha = rz / jnp.vdot(p, ap)
+        alpha = rz / jnp.vdot(p, ap, precision=HI)
         x = x + alpha * p
         r = r - alpha * ap
         z = precond(r) if precond else r
-        rz_new = jnp.vdot(r, z)
+        rz_new = jnp.vdot(r, z, precision=HI)
         p = z + (rz_new / rz) * p
         return x, r, p, rz_new, it + 1
 
@@ -103,14 +105,14 @@ def mme_matvec(plan, state, var_e, jitter=0.0):
         eta = jnp.zeros_like(state.ycorr)
         i = 0
         for x in xs:
-            eta = eta + x @ parts[i]
+            eta = eta + jnp.matmul(x, parts[i], precision=HI)
             i += 1
         for z, _, _ in zs:
-            eta = eta + z @ parts[i]
+            eta = eta + jnp.matmul(z, parts[i], precision=HI)
             i += 1
         for mt, c, _, _ in ms:
             beta = parts[i]
-            eta = eta + beta @ mt - jnp.dot(beta, c)
+            eta = eta + jnp.matmul(beta, mt, precision=HI) - jnp.dot(beta, c, precision=HI)
             i += 1
         return eta, parts
 
@@ -119,14 +121,15 @@ def mme_matvec(plan, state, var_e, jitter=0.0):
         out = []
         i = 0
         for x in xs:
-            out.append((x.T @ eta) * ive)
+            out.append(jnp.matmul(x.T, eta, precision=HI) * ive)
             i += 1
         for z, ivstr, vu in zs:
-            out.append((z.T @ eta) * ive + (ivstr @ parts[i]) / vu)
+            out.append(jnp.matmul(z.T, eta, precision=HI) * ive
+                       + jnp.matmul(ivstr, parts[i], precision=HI) / vu)
             i += 1
         for mt, c, ivb, mask in ms:
             beta = parts[i]
-            mtv = mt @ eta - c * jnp.sum(eta)
+            mtv = jnp.matmul(mt, eta, precision=HI) - c * jnp.sum(eta)
             out.append(jnp.where(mask, mtv * ive + ivb * beta + jitter * beta, beta))
             i += 1
         return jnp.concatenate(out)
@@ -134,11 +137,11 @@ def mme_matvec(plan, state, var_e, jitter=0.0):
     y = state.y
     rhs = []
     for x in xs:
-        rhs.append((x.T @ y) * ive)
+        rhs.append(jnp.matmul(x.T, y, precision=HI) * ive)
     for z, _, _ in zs:
-        rhs.append((z.T @ y) * ive)
+        rhs.append(jnp.matmul(z.T, y, precision=HI) * ive)
     for mt, c, _, mask in ms:
-        rhs.append(jnp.where(mask, (mt @ y - c * jnp.sum(y)) * ive, 0.0))
+        rhs.append(jnp.where(mask, (jnp.matmul(mt, y, precision=HI) - c * jnp.sum(y)) * ive, 0.0))
     return matvec, jnp.concatenate(rhs), sizes
 
 

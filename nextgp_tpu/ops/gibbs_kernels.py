@@ -1,37 +1,51 @@
-"""Pallas TPU kernels for the in-block single-site Gibbs scan.
+"""Pallas kernels (Triton route) for the in-block single-site Gibbs scan.
 
-The pure-JAX path expresses the per-locus chain as a lax.scan whose body is
-tiny; on TPU each XLA while-loop iteration costs ~10-15us of loop overhead,
-which at 50k-600k loci per sweep dwarfs the math (measured 746 ms/sweep at
-10k x 49k vs a ~1.2 ms bandwidth roofline). These kernels run the whole
-B-locus scan inside one Pallas program with the Gram block in VMEM and the
-correction vector u as a register-resident (1, B) carry.
+The plain path (`engine/samplers/markers._block_scan`) runs the per-locus
+chain as a `lax.scan` whose body is a handful of tiny operations; on a GPU
+every iteration of that loop is at least one kernel launch, and a sweep
+has p / V dependent iterations. These kernels run the whole B-locus chain
+of one block inside one program instead:
 
-Key optimization: everything per-locus that does not depend on the chain
-state is precomputed OUTSIDE the kernel as per-locus coefficients
-(engine/samplers/markers.py builds them as fused vector ops over all p
-loci). In particular all transcendentals move out:
+  * grid (V,): one program per virtual chain. The V chains of a block step
+    are independent, so they run side by side on the card's SMs;
+  * a `fori_loop` over the B loci inside the program, with `u` (the
+    pending residual correction) and the new effects carried as (B,)
+    register vectors;
+  * the Gram row of locus j is loaded from device memory at each step (a
+    chain's B x B block outgrows shared memory but stays in L2 across the
+    loop);
+  * every input is indexed by the block step `t`, which the program loads
+    itself: the caller's scan never slices the Gram or the coefficients.
+
+Everything per locus that does not depend on the chain state is computed
+outside the kernel as coefficients over all p loci (the `*_pack`
+functions), transcendentals included:
 
   Gaussian (BayesPR/LV, functions.jl:124-134):
       beta_new = c + b * pre, with b = iVarE/lhs, c = rss/lhs + z*sqrt(1/lhs)
   BayesB/C indicator (functions.jl:171-173): u < 1/(1+e^t)  <=>
-      q0 + q1*rrr^2 < log((1-u)/u), all of q0,q1,w precomputed
-  BayesR class scores (functions.jl:253-257): logl_v = q0_v + q1_v*pre^2
+      q0 + q1*rrr^2 < log((1-u)/u)
+  BayesR class scores (functions.jl:253-257): logl_k = q0_k + q1_k*pre^2
 
-so one locus costs one dynamic (1, W) coefficient-row load, one Gram-row
-product + reduce, a handful of FMAs, and one lane-masked update of u. The
-restore (u_j <- beta_old_j) is folded algebraically into the packed slot 0
+The restore (u_j <- beta_old_j) is folded into the head slot 0
 (pre = r0 + row@u + gram_jj*beta_old, with u_j still 0 when locus j runs).
 
-Packed layouts (slot 0 gets + r0 added per block by the caller):
-  gauss pk (B, 8):  [adj, bold, b, c] (+4 pad)
-  bc    pk (B, 8):  [adj, bold, q0, q1, w, b, c] (+1 pad)
-  r     pk (B, 8+4K): [adj, bold, unif, mask, pad*4 | q0(K), q1(K), b(K), c(K)]
+Coefficient layouts, all indexed [t, v, j, ...] (block step, chain, locus):
+  head (8 slots) gauss: [adj, bold, b, c]
+                 bc:    [adj, bold, q0, q1, w, b, c, adj_raw]
+                 r:     [adj, bold, unif, mask]
+                 rcpi:  [adj, bold, ua, uv, mask]
+                 rcplus:[adj, bold, mask]
+  cls (4, [A,] K) q0, q1, b, c per class (and annotation), padded to
+                 powers of two (Triton's block shapes) with q0 = -1e30 so
+                 padded classes carry no probability
+  ann (n, A)     per-annotation rows: rcpi [aprob, g1, g2, anz],
+                 rcplus [ua, anz]
 
-The kernels consume the same pre-generated random streams as the pure-JAX
-samplers, so both paths sample the same chain up to f32 rounding (indicator
-decisions can flip only when a draw sits within rounding of the threshold).
-CPU tests run with interpret=True.
+The kernels consume the same pre-generated random streams as the plain
+samplers, so both paths sample the same chain up to f32 rounding
+(indicator decisions can flip only when a draw sits within rounding of
+its threshold). Tests run them with interpret=True.
 """
 from __future__ import annotations
 
@@ -39,95 +53,67 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 F32 = jnp.float32
+I32 = jnp.int32
+_NEG = -1e30
+NUM_WARPS = 1
+NUM_STAGES = 2
 
 
-def _lane_iota(B):
-    return jax.lax.broadcasted_iota(jnp.int32, (1, B), 1)
+def pow2(n: int) -> int:
+    """Smallest power of two >= n (Triton block shapes)."""
+    return 1 << max(0, int(n) - 1).bit_length()
 
 
-def _pack(*cols, width=8):
-    cols = [c.astype(F32) for c in cols]
-    pk = jnp.stack(cols, axis=1)
-    pad = width - pk.shape[1]
-    if pad > 0:
-        pk = jnp.concatenate([pk, jnp.zeros((pk.shape[0], pad), F32)], axis=1)
-    return pk
+def _head(*cols):
+    cols = [jnp.asarray(c).astype(F32) for c in cols]
+    pk = jnp.stack(cols, axis=-1)
+    return jnp.pad(pk, ((0, 0), (0, 8 - pk.shape[-1])))
 
 
-def _call(kernel, gram, pk, n_extra_out=0, interpret=False):
-    B = gram.shape[0]
-    outs = [
-        jax.ShapeDtypeStruct((B, 1), F32),  # beta
-        jax.ShapeDtypeStruct((1, B), F32),  # u
-    ] + [jax.ShapeDtypeStruct((B, 1), jnp.int32)] * n_extra_out
-    res = pl.pallas_call(
-        kernel,
-        out_shape=tuple(outs),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
-        out_specs=tuple(pl.BlockSpec(memory_space=pltpu.VMEM) for _ in outs),
-        interpret=interpret,
-    )(gram.astype(F32), pk)
-    return res
+def _pad_last(x, size, fill=0.0):
+    pad = size - x.shape[-1]
+    if pad <= 0:
+        return x.astype(F32)
+    widths = [(0, 0)] * (x.ndim - 1) + [(0, pad)]
+    return jnp.pad(x.astype(F32), widths, constant_values=fill)
 
 
-# ------------------------------------------------------------- Gaussian scan
+def _class_coefs(mpm, lss, mask, varc, logpi, ive, z, active):
+    """(p, 4, ..., K) rows q0, q1, b, c of the class scores. varc/logpi are
+    (K,) or (A, K); z is (p,) or (p, A); active masks b and c."""
+    nz = varc > 0
+    varc_s = jnp.where(nz, varc, 1.0)
+    mpm_safe = jnp.where(mask, mpm, 1.0)
+    ex = (slice(None),) + (None,) * varc.ndim
+    lhs = jnp.where(nz, mpm_safe[ex] * ive + lss[ex] + 1.0 / varc_s, 0.0)
+    lhs_s = jnp.where(nz, lhs, 1.0)
+    invlhs = jnp.where(nz, 1.0 / lhs_s, 0.0)
+    q0 = jnp.where(nz, -0.5 * jnp.log(varc_s * lhs_s), 0.0) + logpi
+    q1 = 0.5 * invlhs * ive * ive
+    act = active[..., None]
+    bco = jnp.where(act, ive * invlhs, 0.0)
+    cco = jnp.where(act, z[..., None] * jnp.sqrt(invlhs), 0.0)
+    Kp = pow2(varc.shape[-1])
+    q0 = _pad_last(jnp.broadcast_to(q0, bco.shape), Kp, _NEG)
+    rest = [_pad_last(jnp.broadcast_to(x, bco.shape), Kp) for x in (q1, bco, cco)]
+    return jnp.stack([q0] + rest, axis=1)
 
 
-def _gauss_kernel(gram_ref, pk_ref, beta_ref, u_ref):
-    B = u_ref.shape[1]
-    lane = _lane_iota(B)
-
-    def body(j, u):
-        s = pk_ref[pl.ds(j, 1), :][0]
-        row = gram_ref[pl.ds(j, 1), :]
-        pre = s[0] + jnp.sum(row * u)
-        bnew = s[3] + s[2] * pre
-        beta_ref[pl.ds(j, 1), 0] = bnew[None]
-        return jnp.where(lane == j, s[1] - bnew, u)
-
-    u = jax.lax.fori_loop(0, B, body, jnp.zeros((1, B), F32))
-    u_ref[:, :] = u
+# ------------------------------------------------------------ coefficients
 
 
 @jax.jit
-def gauss_block_pack(r0_extra, beta_old, z, ivb, mpm, lss, rss, mask, ive):
-    """Per-locus coefficients for the Gaussian scan, all-p vectorized.
-    r0_extra: additive offset already known pre-sweep (mpm*beta_old)."""
+def gauss_block_pack(beta_old, z, ivb, mpm, lss, rss, mask, ive):
     lhs = mpm * ive + lss + ivb
     invlhs = 1.0 / lhs
     b = jnp.where(mask, ive * invlhs, 0.0)
     c = jnp.where(mask, rss * invlhs + z * jnp.sqrt(invlhs), 0.0)
-    return _pack(r0_extra + mpm * beta_old, beta_old, b, c)
-
-
-def gauss_block_scan(gram, pk_b, interpret=False):
-    beta, u = _call(_gauss_kernel, gram, pk_b, 0, interpret)
-    return beta[:, 0], u[0]
-
-
-# ------------------------------------------------------------- BayesB/C scan
-
-
-def _bc_kernel(gram_ref, pk_ref, beta_ref, u_ref, delta_ref):
-    B = u_ref.shape[1]
-    lane = _lane_iota(B)
-
-    def body(j, u):
-        s = pk_ref[pl.ds(j, 1), :][0]
-        row = gram_ref[pl.ds(j, 1), :]
-        pre = s[0] + jnp.sum(row * u)
-        inc = s[2] + s[3] * pre * pre < s[4]
-        bnew = jnp.where(inc, s[6] + s[5] * pre, 0.0)
-        beta_ref[pl.ds(j, 1), 0] = bnew[None]
-        delta_ref[pl.ds(j, 1), 0] = inc.astype(jnp.int32)[None]
-        return jnp.where(lane == j, s[1] - bnew, u)
-
-    u = jax.lax.fori_loop(0, B, body, jnp.zeros((1, B), F32))
-    u_ref[:, :] = u
+    return _head(mpm * beta_old, beta_old, b, c)
 
 
 @functools.partial(jax.jit, static_argnames=("common",))
@@ -137,8 +123,7 @@ def bc_block_pack(beta_old, z, unif, vb, ivb, mpm, lss, rss, mask, ive, var_e,
     q0 + q1*rrr^2 < log((1-u)/u) (functions.jl:171-173, exact algebra).
 
     mpm_raw (weighted "D" models only): the raw per-locus m'm diagonal —
-    slot 7 then carries the RAW restore adjustment, and the weighted
-    kernels track a second raw projection for the indicator's rrr
+    slot 7 then carries the raw restore adjustment for the indicator's rrr
     (functions.jl:168: rrr is the unweighted dot even when mpm is
     weighted)."""
     mpm_safe = jnp.where(mask, mpm, 1.0)
@@ -153,816 +138,256 @@ def bc_block_pack(beta_old, z, unif, vb, ivb, mpm, lss, rss, mask, ive, var_e,
     b = ive * invlhs
     rss_eff = 0.0 if common else rss  # BayesC omits rhs_ss (functions.jl:219)
     c = rss_eff * invlhs + z * jnp.sqrt(invlhs)
-    cols = (mpm * beta_old, beta_old, q0, q1, w, b, c)
-    if mpm_raw is not None:
-        cols = cols + (mpm_raw * beta_old,)
-    return _pack(*cols)
-
-
-def bc_block_scan(gram, pk_b, interpret=False):
-    beta, u, delta = _call(_bc_kernel, gram, pk_b, 1, interpret)
-    return beta[:, 0], u[0], delta[:, 0]
-
-
-def _bc_kernel_w(gram_ref, graw_ref, pk_ref, beta_ref, u_ref, delta_ref):
-    """Weighted BayesB/C: the weighted Gram drives rhs (pre), the raw Gram
-    drives the indicator's rrr (pre_raw) — mme.jl:71-75, functions.jl:168."""
-    B = u_ref.shape[1]
-    lane = _lane_iota(B)
-
-    def body(j, u):
-        s = pk_ref[pl.ds(j, 1), :][0]
-        row = gram_ref[pl.ds(j, 1), :]
-        rowr = graw_ref[pl.ds(j, 1), :]
-        pre = s[0] + jnp.sum(row * u)
-        prer = s[7] + jnp.sum(rowr * u)
-        inc = s[2] + s[3] * prer * prer < s[4]
-        bnew = jnp.where(inc, s[6] + s[5] * pre, 0.0)
-        beta_ref[pl.ds(j, 1), 0] = bnew[None]
-        delta_ref[pl.ds(j, 1), 0] = inc.astype(jnp.int32)[None]
-        return jnp.where(lane == j, s[1] - bnew, u)
-
-    u = jax.lax.fori_loop(0, B, body, jnp.zeros((1, B), F32))
-    u_ref[:, :] = u
-
-
-def bc_block_scan_w(gram, graw, pk_b, interpret=False):
-    B = gram.shape[0]
-    outs = (
-        jax.ShapeDtypeStruct((B, 1), F32),
-        jax.ShapeDtypeStruct((1, B), F32),
-        jax.ShapeDtypeStruct((B, 1), jnp.int32),
-    )
-    beta, u, delta = pl.pallas_call(
-        _bc_kernel_w,
-        out_shape=outs,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
-        out_specs=tuple(pl.BlockSpec(memory_space=pltpu.VMEM) for _ in outs),
-        interpret=interpret,
-    )(gram.astype(F32), graw.astype(F32), pk_b.astype(F32))
-    return beta[:, 0], u[0], delta[:, 0]
-
-
-# --------------------------------------------------------------- BayesR scan
-
-
-def _make_r_kernel(K):
-    def _r_kernel(gram_ref, pk_ref, beta_ref, u_ref, delta_ref):
-        B = u_ref.shape[1]
-        lane = _lane_iota(B)
-        kiota = jax.lax.broadcasted_iota(jnp.int32, (1, K), 1)[0]
-        tri = kiota[:, None] <= kiota[None, :]
-
-        def body(j, u):
-            s = pk_ref[pl.ds(j, 1), :][0]
-            row = gram_ref[pl.ds(j, 1), :]
-            pre = s[0] + jnp.sum(row * u)
-            q0 = s[8:8 + K]
-            q1 = s[8 + K:8 + 2 * K]
-            bco = s[8 + 2 * K:8 + 3 * K]
-            cco = s[8 + 3 * K:8 + 4 * K]
-            logl = q0 + q1 * pre * pre
-            logl = logl - jnp.max(logl)
-            e = jnp.exp(logl)
-            probs = e / jnp.sum(e)
-            cum = jnp.sum(jnp.where(tri, probs[:, None], 0.0), axis=0)
-            cls = jnp.minimum(jnp.sum((cum < s[2]).astype(jnp.int32)), K - 1)
-            sel = kiota == cls
-            bnew = jnp.sum(jnp.where(sel, cco + bco * pre, 0.0))
-            beta_ref[pl.ds(j, 1), 0] = bnew[None]
-            delta_ref[pl.ds(j, 1), 0] = (
-                jnp.where(s[3] != 0, cls + 1, 0).astype(jnp.int32)[None])
-            return jnp.where(lane == j, s[1] - bnew, u)
-
-        u = jax.lax.fori_loop(0, B, body, jnp.zeros((1, B), F32))
-        u_ref[:, :] = u
-
-    return _r_kernel
+    raw = mpm_raw * beta_old if mpm_raw is not None else jnp.zeros_like(beta_old)
+    return _head(mpm * beta_old, beta_old, q0, q1, w, b, c, raw)
 
 
 @jax.jit
 def r_block_pack(beta_old, z, unif, mpm, lss, rss, mask, varc, logpi, ive, var_e):
-    """BayesR coefficients: logl_v = q0_v + q1_v*pre^2 with rss folded into
-    the additive slot (rhs = (r0 + dot + mpm*bold + rss*varE) * iVarE)."""
-    K = varc.shape[0]
-    p = beta_old.shape[0]
-    nz = varc > 0
-    varc_s = jnp.where(nz, varc, 1.0)
-    mpm_safe = jnp.where(mask, mpm, 1.0)
-    lhs = jnp.where(nz[None, :], mpm_safe[:, None] * ive + lss[:, None] + 1.0 / varc_s[None, :], 0.0)
-    lhs_s = jnp.where(nz[None, :], lhs, 1.0)
-    invlhs = jnp.where(nz[None, :], 1.0 / lhs_s, 0.0)
-    q0 = jnp.where(nz[None, :], -0.5 * jnp.log(varc_s[None, :] * lhs_s), 0.0) + logpi[None, :]
-    q1 = 0.5 * invlhs * ive * ive
-    bco = jnp.where(mask[:, None], ive * invlhs, 0.0)
-    cco = jnp.where(mask[:, None], z[:, None] * jnp.sqrt(invlhs), 0.0)
-    adj = mpm * beta_old + rss * var_e
-    head = _pack(adj, beta_old, unif, mask.astype(F32))
-    return jnp.concatenate(
-        [head] + [x.astype(F32) for x in (q0, q1, bco, cco)], axis=1)
-
-
-def r_block_scan(gram, pk_b, n_classes, interpret=False):
-    beta, u, delta = _call(_make_r_kernel(n_classes), gram, pk_b, 1, interpret)
-    return beta[:, 0], u[0], delta[:, 0]
-
-
-# ------------------------------------------------- batched (virtual-shard) scans
-#
-# V independent block chains advance together: one scan step updates locus j
-# of every virtual shard, so the per-step VPU tiles are (V, B) — V=8 fills
-# the sublane dimension that the single-chain kernels leave idle. This is
-# the on-chip analog of the multi-device sharded schedule (parallel/
-# sharded.py): shard v owns contiguous blocks [v*T, (v+1)*T) and the
-# residual syncs at block-step boundaries via the summed correction.
-#
-# Layout: gram arrives locus-major (B, V, B) — pre-arranged at assemble time
-# (engine/plan.py vshard storage) so the in-kernel dynamic slice at locus j
-# yields a contiguous (V, B) tile with zero per-step transposes; pk is small
-# and transposed here. beta/delta accumulate in the carry as (V, B) register
-# tiles (single store at the end) instead of per-iteration scatter stores.
-
-
-def _gram_dims(gram_t):
-    """(B, V) whether gram_t is a per-step (B, V, B) block or a
-    ((T, B, V, B), t) step-indexed tuple."""
-    shape = gram_t[0].shape[1:] if isinstance(gram_t, tuple) else gram_t.shape
-    return shape[0], shape[1]
-
-
-def _pallas_step_call(kernel, gram_t, pk_t, outs, interpret, gram2_t=None):
-    """Invoke a V-batched scan kernel.
-
-    gram_t is either the per-step locus-major (B, V, B) Gram block
-    (full-VMEM operands — the original path), or a tuple
-    (gram_all (T, B, V, B), t): then the kernel's BlockSpec DMAs step t's
-    block straight out of the full Gram array via a scalar-prefetch index,
-    so the caller's scan never materializes a per-step Gram slice (an
-    extra read+write pass over the whole Gram per sweep otherwise).
-
-    gram2_t (weighted "D" models): a second Gram stream — the raw
-    Mc'Mc alongside the weighted Mc'D Mc — given the identical treatment;
-    the kernel then takes (gram_ref, graw_ref, pk_ref, *outs)."""
-    grams = [gram_t] if gram2_t is None else [gram_t, gram2_t]
-    if isinstance(gram_t, tuple):
-        gram_all, t = gram_t
-        _, B, V, _ = gram_all.shape
-        gram_arrs = [g[0] if isinstance(g, tuple) else g for g in grams]
-        ng = len(gram_arrs)
-
-        def kern_sp(t_ref, *refs):
-            kernel(*refs)
-
-        def _pinned(shape):
-            rank = len(shape)
-            return pl.BlockSpec(shape, lambda g, t_ref, _r=rank: (0,) * _r)
-
-        gs = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(1,),
-            in_specs=[
-                pl.BlockSpec((None, B, V, B), lambda g, t_ref: (t_ref[0], 0, 0, 0))
-                for _ in range(ng)
-            ] + [_pinned(pk_t.shape)],
-            out_specs=tuple(_pinned(o.shape) for o in outs),
-        )
-        # the (B, V, B) Gram block(s) land in scoped VMEM (vs operand VMEM
-        # on the sliced path), whose default 16 MB cap is far below what a
-        # V=96-144 tile needs — raise it (v5e has 128 MB VMEM/core)
-        import math
-
-        # slack covers double-buffered Gram DMA windows: the weighted
-        # two-stream kernel at V=96 B=256 peaks ~1.5x the operand bytes
-        # (XLA reported 73.35 MiB scoped demand on 49 MiB of operands)
-        sz = ng * 4 * B * V * B + 4 * pk_t.size + sum(
-            4 * math.prod(o.shape) for o in outs)
-        params = (
-            None if interpret else
-            pltpu.CompilerParams(
-                vmem_limit_bytes=min(110 << 20, sz + max(24 << 20, sz)))
-        )
-        return pl.pallas_call(
-            kern_sp, out_shape=tuple(outs), grid_spec=gs, interpret=interpret,
-            compiler_params=params,
-        )(jnp.asarray(t, jnp.int32).reshape(1),
-          *[g.astype(F32) for g in gram_arrs], pk_t.astype(F32))
-    return pl.pallas_call(
-        kernel,
-        out_shape=tuple(outs),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * (len(grams) + 1),
-        out_specs=tuple(pl.BlockSpec(memory_space=pltpu.VMEM) for _ in outs),
-        interpret=interpret,
-    )(*[g.astype(F32) for g in grams], pk_t.astype(F32))
-
-
-def _call_v(kernel, gram_t, pk_t, n_extra_out=0, interpret=False):
-    B, V = _gram_dims(gram_t)
-    outs = [
-        jax.ShapeDtypeStruct((V, B), F32),  # beta
-        jax.ShapeDtypeStruct((V, B), F32),  # u
-    ] + [jax.ShapeDtypeStruct((V, B), jnp.int32)] * n_extra_out
-    return _pallas_step_call(kernel, gram_t, pk_t, outs, interpret)
-
-
-def _gauss_kernel_v(gram_ref, pk_ref, beta_ref, u_ref):
-    V, B = u_ref.shape
-    lane = jax.lax.broadcasted_iota(jnp.int32, (V, B), 1)
-
-    def body(j, carry):
-        u, beta = carry
-        s = pk_ref[pl.ds(j, 1), :, :][0]  # (V, W)
-        row = gram_ref[pl.ds(j, 1), :, :][0]  # (V, B)
-        pre = s[:, 0] + jnp.sum(row * u, axis=-1)
-        bnew = s[:, 3] + s[:, 2] * pre
-        sel = lane == j
-        u = jnp.where(sel, (s[:, 1] - bnew)[:, None], u)
-        beta = jnp.where(sel, bnew[:, None], beta)
-        return u, beta
-
-    u, beta = jax.lax.fori_loop(
-        0, B, body, (jnp.zeros((V, B), F32), jnp.zeros((V, B), F32))
-    )
-    beta_ref[:, :] = beta
-    u_ref[:, :] = u
-
-
-def gauss_block_scan_v(gram_t, pk, interpret=False):
-    """gram_t locus-major (B,V,B), pk (V,B,8) -> beta (V,B), u (V,B)."""
-    pk_t = jnp.swapaxes(pk, 0, 1)  # (B, V, W)
-    beta, u = _call_v(_gauss_kernel_v, gram_t, pk_t, 0, interpret)
-    return beta, u
-
-
-def _bc_kernel_v(gram_ref, pk_ref, beta_ref, u_ref, delta_ref):
-    V, B = u_ref.shape
-    lane = jax.lax.broadcasted_iota(jnp.int32, (V, B), 1)
-
-    def body(j, carry):
-        u, beta, delta = carry
-        s = pk_ref[pl.ds(j, 1), :, :][0]  # (V, W)
-        row = gram_ref[pl.ds(j, 1), :, :][0]
-        pre = s[:, 0] + jnp.sum(row * u, axis=-1)
-        inc = s[:, 2] + s[:, 3] * pre * pre < s[:, 4]
-        bnew = jnp.where(inc, s[:, 6] + s[:, 5] * pre, 0.0)
-        sel = lane == j
-        u = jnp.where(sel, (s[:, 1] - bnew)[:, None], u)
-        beta = jnp.where(sel, bnew[:, None], beta)
-        delta = jnp.where(sel, inc.astype(jnp.int32)[:, None], delta)
-        return u, beta, delta
-
-    u, beta, delta = jax.lax.fori_loop(
-        0, B, body,
-        (jnp.zeros((V, B), F32), jnp.zeros((V, B), F32), jnp.zeros((V, B), jnp.int32)),
-    )
-    beta_ref[:, :] = beta
-    u_ref[:, :] = u
-    delta_ref[:, :] = delta
-
-
-def bc_block_scan_v(gram_t, pk, interpret=False):
-    pk_t = jnp.swapaxes(pk, 0, 1)
-    beta, u, delta = _call_v(_bc_kernel_v, gram_t, pk_t, 1, interpret)
-    return beta, u, delta
-
-
-def _bc_kernel_wv(gram_ref, graw_ref, pk_ref, beta_ref, u_ref, delta_ref):
-    """V-batched weighted BayesB/C (see _bc_kernel_w)."""
-    V, B = u_ref.shape
-    lane = jax.lax.broadcasted_iota(jnp.int32, (V, B), 1)
-
-    def body(j, carry):
-        u, beta, delta = carry
-        s = pk_ref[pl.ds(j, 1), :, :][0]  # (V, W)
-        row = gram_ref[pl.ds(j, 1), :, :][0]
-        rowr = graw_ref[pl.ds(j, 1), :, :][0]
-        pre = s[:, 0] + jnp.sum(row * u, axis=-1)
-        prer = s[:, 7] + jnp.sum(rowr * u, axis=-1)
-        inc = s[:, 2] + s[:, 3] * prer * prer < s[:, 4]
-        bnew = jnp.where(inc, s[:, 6] + s[:, 5] * pre, 0.0)
-        sel = lane == j
-        u = jnp.where(sel, (s[:, 1] - bnew)[:, None], u)
-        beta = jnp.where(sel, bnew[:, None], beta)
-        delta = jnp.where(sel, inc.astype(jnp.int32)[:, None], delta)
-        return u, beta, delta
-
-    u, beta, delta = jax.lax.fori_loop(
-        0, B, body,
-        (jnp.zeros((V, B), F32), jnp.zeros((V, B), F32), jnp.zeros((V, B), jnp.int32)),
-    )
-    beta_ref[:, :] = beta
-    u_ref[:, :] = u
-    delta_ref[:, :] = delta
-
-
-def bc_block_scan_wv(gram_t, graw_t, pk, interpret=False):
-    """Weighted V-batched BayesB/C: both Gram streams (weighted + raw) are
-    per-step (B, V, B) blocks or ((T, B, V, B), t) step-indexed tuples."""
-    pk_t = jnp.swapaxes(pk, 0, 1)
-    B, V = _gram_dims(gram_t)
-    outs = [
-        jax.ShapeDtypeStruct((V, B), F32),
-        jax.ShapeDtypeStruct((V, B), F32),
-        jax.ShapeDtypeStruct((V, B), jnp.int32),
-    ]
-    beta, u, delta = _pallas_step_call(
-        _bc_kernel_wv, gram_t, pk_t, outs, interpret, gram2_t=graw_t)
-    return beta, u, delta
-
-
-def _make_r_kernel_v(K):
-    def _r_kernel_v(gram_ref, pk_ref, beta_ref, u_ref, delta_ref):
-        V, B = u_ref.shape
-        lane = jax.lax.broadcasted_iota(jnp.int32, (V, B), 1)
-        kiota = jax.lax.broadcasted_iota(jnp.int32, (V, K), 1)
-        ki = jax.lax.broadcasted_iota(jnp.int32, (K, K), 0)
-        kj = jax.lax.broadcasted_iota(jnp.int32, (K, K), 1)
-        tri = ki <= kj  # tri[i, k]: class i contributes to cum[k]
-
-        def body(j, carry):
-            u, beta, delta = carry
-            s = pk_ref[pl.ds(j, 1), :, :][0]  # (V, 8+4K)
-            row = gram_ref[pl.ds(j, 1), :, :][0]
-            pre = s[:, 0] + jnp.sum(row * u, axis=-1)  # (V,)
-            q0 = s[:, 8:8 + K]
-            q1 = s[:, 8 + K:8 + 2 * K]
-            bco = s[:, 8 + 2 * K:8 + 3 * K]
-            cco = s[:, 8 + 3 * K:8 + 4 * K]
-            logl = q0 + q1 * (pre * pre)[:, None]  # (V, K)
-            logl = logl - jnp.max(logl, axis=-1, keepdims=True)
-            e = jnp.exp(logl)
-            probs = e / jnp.sum(e, axis=-1, keepdims=True)
-            # cumsum via masked sum (cumsum does not lower in Mosaic)
-            cum = jnp.sum(jnp.where(tri[None], probs[:, :, None], 0.0), axis=1)
-            cls = jnp.minimum(
-                jnp.sum((cum < s[:, 2:3]).astype(jnp.int32), axis=-1), K - 1)  # (V,)
-            sel_k = kiota == cls[:, None]
-            bnew = jnp.sum(jnp.where(sel_k, cco + bco * pre[:, None], 0.0), axis=-1)
-            dval = jnp.where(s[:, 3] != 0, cls + 1, 0).astype(jnp.int32)
-            sel = lane == j
-            u = jnp.where(sel, (s[:, 1] - bnew)[:, None], u)
-            beta = jnp.where(sel, bnew[:, None], beta)
-            delta = jnp.where(sel, dval[:, None], delta)
-            return u, beta, delta
-
-        u, beta, delta = jax.lax.fori_loop(
-            0, B, body,
-            (jnp.zeros((V, B), F32), jnp.zeros((V, B), F32), jnp.zeros((V, B), jnp.int32)),
-        )
-        beta_ref[:, :] = beta
-        u_ref[:, :] = u
-        delta_ref[:, :] = delta
-
-    return _r_kernel_v
-
-
-def r_block_scan_v(gram_t, pk, n_classes, interpret=False):
-    pk_t = jnp.swapaxes(pk, 0, 1)
-    beta, u, delta = _call_v(_make_r_kernel_v(n_classes), gram_t, pk_t, 1, interpret)
-    return beta, u, delta
-
-# ------------------------------------------------------------ BayesRCpi scan
-#
-# Per locus the class grid is (nA, K): annotation drawn from
-# annotProb * sum_k exp(logl), then the variance class within the chosen
-# annotation (sampleBayesRCpi!, functions.jl:291-360). Mosaic dislikes
-# 2-D grids with dynamically-masked cross reductions, so the kernel works
-# entirely on flat (AK,) vectors with an (AK, AK) prefix mask — the same op
-# vocabulary as the proven BayesR kernel:
-#   * annotation CDF: inclusive prefix of aprob*e over AK, read at row-end
-#     lanes (akiota % K == K-1)
-#   * class CDF within the chosen row: prefix of e restricted to
-#     aid == a_sel (zero elsewhere, so the flat prefix IS the row prefix)
-# All per-annotation inputs are packed AK-expanded; the Dirichlet
-# annotation-prob update outputs AK-expanded probs, decimated (::K) by the
-# caller.
-#
-# pk layout (W = 8 + 8AK):
-#   [adj, bold, ua, uv, mask, pad3 | aprobK, g1K, g2K, anzK,
-#    q0, q1, bco, cco] (AK each)
+    """BayesR: logl_k = q0_k + q1_k*pre^2 with rss folded into the additive
+    slot (rhs = (r0 + dot + mpm*bold + rss*varE) * iVarE)."""
+    head = _head(mpm * beta_old + rss * var_e, beta_old, unif, mask)
+    cls = _class_coefs(mpm, lss, mask, varc, logpi, ive, z, mask)
+    return head, cls
 
 
 @jax.jit
 def rcpi_block_pack(beta_old, z, ua, uv, g1, g2, aprob, anz, mpm, lss, rss,
                     mask, varc, logpi, ive, var_e):
-    A, K = varc.shape
-    nz = varc > 0
-    varc_s = jnp.where(nz, varc, 1.0)
-    mpm_safe = jnp.where(mask, mpm, 1.0)
-    lhs = jnp.where(
-        nz[None], mpm_safe[:, None, None] * ive + lss[:, None, None] + 1.0 / varc_s[None], 0.0
-    )
-    lhs_s = jnp.where(nz[None], lhs, 1.0)
-    invlhs = jnp.where(nz[None], 1.0 / lhs_s, 0.0)
-    q0 = jnp.where(nz[None], -0.5 * jnp.log(varc_s[None] * lhs_s), 0.0) + logpi[None]
-    q1 = 0.5 * invlhs * ive * ive
-    bco = jnp.where(mask[:, None, None], ive * invlhs, 0.0)
-    cco = jnp.where(mask[:, None, None], z[:, None, None] * jnp.sqrt(invlhs), 0.0)
-    p = beta_old.shape[0]
-    adj = mpm * beta_old + rss * var_e
-    head = _pack(adj, beta_old, ua, uv, mask.astype(F32))
-    expand = lambda x: jnp.repeat(x.astype(F32), K, axis=1)  # (p, A) -> (p, AK)
-    flat = [x.reshape(p, A * K).astype(F32) for x in (q0, q1, bco, cco)]
-    return jnp.concatenate(
-        [head, expand(aprob), expand(g1), expand(g2), expand(anz.astype(F32))]
-        + flat, axis=1)
-
-
-def _make_rcpi_kernel(A, K):
-    AK = A * K
-    o = 8
-    oap, og1, og2, oaz = o, o + AK, o + 2 * AK, o + 3 * AK
-    oq0, oq1, obc, occ = o + 4 * AK, o + 5 * AK, o + 6 * AK, o + 7 * AK
-
-    def kern(gram_ref, pk_ref, beta_ref, u_ref, delta_ref, acat_ref, aprob_ref):
-        B = u_ref.shape[1]
-        lane = _lane_iota(B)
-        akiota = jax.lax.broadcasted_iota(jnp.int32, (1, AK), 1)[0]
-        aid = akiota // K
-        rowend = akiota - aid * K == K - 1
-        tri = akiota[:, None] <= akiota[None, :]  # inclusive prefix mask
-
-        def body(j, u):
-            s = pk_ref[pl.ds(j, 1), :][0]
-            row = gram_ref[pl.ds(j, 1), :]
-            pre = s[0] + jnp.sum(row * u)
-            q0 = s[oq0:oq0 + AK]
-            q1 = s[oq1:oq1 + AK]
-            bco = s[obc:obc + AK]
-            cco = s[occ:occ + AK]
-            anzk = s[oaz:oaz + AK]
-            aprobk = s[oap:oap + AK]
-            logl = q0 + q1 * pre * pre
-            logl = logl - jnp.max(logl)
-            e = jnp.exp(logl) * anzk
-            w = aprobk * e
-            wn = w / jnp.sum(w)
-            cumw = jnp.sum(jnp.where(tri, wn[:, None], 0.0), axis=0)
-            a_sel = jnp.sum(((cumw < s[2]) & rowend).astype(jnp.int32)).astype(jnp.int32)
-            in_row = aid == a_sel
-            ej = jnp.where(in_row, e, 0.0)
-            pj = ej / jnp.sum(ej)
-            cumj = jnp.sum(jnp.where(tri, pj[:, None], 0.0), axis=0)
-            cls = jnp.minimum(jnp.sum(
-                ((cumj < s[3]) & in_row).astype(jnp.int32)).astype(jnp.int32), K - 1)
-            idx = a_sel * K + cls
-            hot = akiota == idx
-            bnew = jnp.sum(jnp.where(hot, cco + bco * pre, 0.0))
-            gamk = jnp.where(in_row, s[og2:og2 + AK], s[og1:og1 + AK]) * anzk
-            apk = gamk * float(K) / jnp.sum(gamk)
-            ap_out = jnp.where(s[4] != 0, apk, aprobk)
-            beta_ref[pl.ds(j, 1), 0] = bnew[None]
-            delta_ref[pl.ds(j, 1), 0] = (
-                jnp.where(s[4] != 0, cls + 1, 0).astype(jnp.int32)[None])
-            acat_ref[pl.ds(j, 1), 0] = (
-                jnp.where(s[4] != 0, a_sel + 1, 0).astype(jnp.int32)[None])
-            aprob_ref[pl.ds(j, 1), :] = ap_out[None]
-            return jnp.where(lane == j, s[1] - bnew, u)
-
-        u = jax.lax.fori_loop(0, B, body, jnp.zeros((1, B), F32))
-        u_ref[:, :] = u
-
-    return kern
-
-
-def rcpi_block_scan(gram, pk_b, A, K, interpret=False):
-    B = gram.shape[0]
-    outs = (
-        jax.ShapeDtypeStruct((B, 1), F32),  # beta
-        jax.ShapeDtypeStruct((1, B), F32),  # u
-        jax.ShapeDtypeStruct((B, 1), jnp.int32),  # delta
-        jax.ShapeDtypeStruct((B, 1), jnp.int32),  # acat
-        jax.ShapeDtypeStruct((B, A * K), F32),  # annot probs (AK-expanded)
-    )
-    beta, u, delta, acat, aprob = pl.pallas_call(
-        _make_rcpi_kernel(A, K),
-        out_shape=outs,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
-        out_specs=tuple(pl.BlockSpec(memory_space=pltpu.VMEM) for _ in outs),
-        interpret=interpret,
-    )(gram.astype(F32), pk_b)
-    return beta[:, 0], u[0], delta[:, 0], acat[:, 0], aprob[:, ::K]
-
-
-def _make_rcpi_kernel_v(A, K):
-    AK = A * K
-    o = 8
-    oap, og1, og2, oaz = o, o + AK, o + 2 * AK, o + 3 * AK
-    oq0, oq1, obc, occ = o + 4 * AK, o + 5 * AK, o + 6 * AK, o + 7 * AK
-
-    def kern(gram_ref, pk_ref, beta_ref, u_ref, delta_ref, acat_ref, aprob_ref):
-        V, B = u_ref.shape
-        lane = jax.lax.broadcasted_iota(jnp.int32, (V, B), 1)
-        ak1 = jax.lax.broadcasted_iota(jnp.int32, (1, AK), 1)[0]
-        aid1 = ak1 // K
-        rowend1 = ak1 - aid1 * K == K - 1
-        tri = ak1[:, None] <= ak1[None, :]
-        akV = jax.lax.broadcasted_iota(jnp.int32, (V, AK), 1)
-        aidV = akV // K
-
-        def body(j, carry):
-            u, beta, delta, acat = carry
-            s = pk_ref[pl.ds(j, 1), :, :][0]  # (V, W)
-            row = gram_ref[pl.ds(j, 1), :, :][0]  # (V, B)
-            pre = s[:, 0] + jnp.sum(row * u, axis=-1)  # (V,)
-            q0 = s[:, oq0:oq0 + AK]
-            q1 = s[:, oq1:oq1 + AK]
-            bco = s[:, obc:obc + AK]
-            cco = s[:, occ:occ + AK]
-            anzk = s[:, oaz:oaz + AK]
-            aprobk = s[:, oap:oap + AK]
-            logl = q0 + q1 * (pre * pre)[:, None]  # (V, AK)
-            logl = logl - jnp.max(logl, axis=-1, keepdims=True)
-            e = jnp.exp(logl) * anzk
-            w = aprobk * e
-            wn = w / jnp.sum(w, axis=-1, keepdims=True)
-            cumw = jnp.sum(jnp.where(tri[None], wn[:, :, None], 0.0), axis=1)
-            a_sel = jnp.sum(
-                ((cumw < s[:, 2:3]) & rowend1[None]).astype(jnp.int32), axis=-1
-            ).astype(jnp.int32)  # (V,)
-            in_row = aidV == a_sel[:, None]
-            ej = jnp.where(in_row, e, 0.0)
-            pj = ej / jnp.sum(ej, axis=-1, keepdims=True)
-            cumj = jnp.sum(jnp.where(tri[None], pj[:, :, None], 0.0), axis=1)
-            cls = jnp.minimum(jnp.sum(
-                ((cumj < s[:, 3:4]) & in_row).astype(jnp.int32), axis=-1
-            ).astype(jnp.int32), K - 1)
-            idx = a_sel * K + cls
-            hot = akV == idx[:, None]
-            bnew = jnp.sum(jnp.where(hot, cco + bco * pre[:, None], 0.0), axis=-1)
-            gamk = jnp.where(in_row, s[:, og2:og2 + AK], s[:, og1:og1 + AK]) * anzk
-            apk = gamk * float(K) / jnp.sum(gamk, axis=-1, keepdims=True)
-            ap_out = jnp.where((s[:, 4] != 0)[:, None], apk, aprobk)
-            dval = jnp.where(s[:, 4] != 0, cls + 1, 0).astype(jnp.int32)
-            aval = jnp.where(s[:, 4] != 0, a_sel + 1, 0).astype(jnp.int32)
-            aprob_ref[pl.ds(j, 1), :, :] = ap_out[None]
-            sel = lane == j
-            u = jnp.where(sel, (s[:, 1] - bnew)[:, None], u)
-            beta = jnp.where(sel, bnew[:, None], beta)
-            delta = jnp.where(sel, dval[:, None], delta)
-            acat = jnp.where(sel, aval[:, None], acat)
-            return u, beta, delta, acat
-
-        u, beta, delta, acat = jax.lax.fori_loop(
-            0, B, body,
-            (jnp.zeros((V, B), F32), jnp.zeros((V, B), F32),
-             jnp.zeros((V, B), jnp.int32), jnp.zeros((V, B), jnp.int32)),
-        )
-        beta_ref[:, :] = beta
-        u_ref[:, :] = u
-        delta_ref[:, :] = delta
-        acat_ref[:, :] = acat
-
-    return kern
-
-
-def rcpi_block_scan_v(gram_t, pk, A, K, interpret=False):
-    """gram_t locus-major (B,V,B), pk (V,B,W). Returns (V,B) beta/u/delta/
-    acat and (V,B,A) annot probs (written locus-major AK-expanded, re-majored
-    and decimated here)."""
-    B, V = _gram_dims(gram_t)
-    pk_t = jnp.swapaxes(pk, 0, 1)  # (B, V, W)
-    outs = (
-        jax.ShapeDtypeStruct((V, B), F32),
-        jax.ShapeDtypeStruct((V, B), F32),
-        jax.ShapeDtypeStruct((V, B), jnp.int32),
-        jax.ShapeDtypeStruct((V, B), jnp.int32),
-        jax.ShapeDtypeStruct((B, V, A * K), F32),
-    )
-    beta, u, delta, acat, aprob = _pallas_step_call(
-        _make_rcpi_kernel_v(A, K), gram_t, pk_t, outs, interpret)
-    return beta, u, delta, acat, jnp.swapaxes(aprob, 0, 1)[:, :, ::K]
-
-
-# ---------------------------------------------------------- BayesRCplus scan
-#
-# Additive per-annotation components (sampleBayesRCplus!, functions.jl:
-# 362-419): the locus effect is the sum of one draw per non-zero annotation,
-# with the rhs recomputed after each component. The own-coefficient
-# exclusion of functions.jl:376 uses g_jj (Gram diagonal) read from the row;
-# the inner loop over annotations is a fori_loop on flat (AK,) vectors with
-# the same prefix-mask vocabulary as the RCpi kernel.
-#
-# pk layout (W = 8 + 6AK):
-#   [adj(=rss*varE), bold, mask, pad5 | uaK, anzK, q0, q1, bco, cco] (AK each)
+    A = varc.shape[0]
+    Ap = pow2(A)
+    head = _head(mpm * beta_old + rss * var_e, beta_old, ua, uv, mask)
+    zA = jnp.broadcast_to(z[:, None], (z.shape[0], A))
+    actA = jnp.broadcast_to(mask[:, None], zA.shape)
+    cls = _class_coefs(mpm, lss, mask, varc, logpi, ive, zA, actA)
+    cls = jnp.pad(cls, ((0, 0), (0, 0), (0, Ap - A), (0, 0)))
+    cls = cls.at[:, 0, A:, :].set(_NEG)
+    ann = jnp.stack([_pad_last(x, Ap) for x in (aprob, g1, g2, anz)], axis=1)
+    return head, cls, ann
 
 
 @jax.jit
 def rcplus_block_pack(beta_old, z, ua, anz, mpm, lss, rss, mask, varc, logpi,
                       ive, var_e):
-    A, K = varc.shape
-    nz = varc > 0
-    varc_s = jnp.where(nz, varc, 1.0)
-    mpm_safe = jnp.where(mask, mpm, 1.0)
-    lhs = jnp.where(
-        nz[None], mpm_safe[:, None, None] * ive + lss[:, None, None] + 1.0 / varc_s[None], 0.0
-    )
-    lhs_s = jnp.where(nz[None], lhs, 1.0)
-    invlhs = jnp.where(nz[None], 1.0 / lhs_s, 0.0)
-    q0 = jnp.where(nz[None], -0.5 * jnp.log(varc_s[None] * lhs_s), 0.0) + logpi[None]
-    q1 = 0.5 * invlhs * ive * ive
-    active = mask[:, None] & anz  # (p, A)
-    bco = jnp.where(active[:, :, None], ive * invlhs, 0.0)
-    cco = jnp.where(active[:, :, None], z[:, :, None] * jnp.sqrt(invlhs), 0.0)
-    p = mpm.shape[0]
-    adj = rss * var_e
-    head = _pack(adj, beta_old, mask.astype(F32))
-    expand = lambda x: jnp.repeat(x.astype(F32), K, axis=1)
-    flat = [x.reshape(p, A * K).astype(F32) for x in (q0, q1, bco, cco)]
-    return jnp.concatenate([head, expand(ua), expand(anz.astype(F32))] + flat, axis=1)
+    A = varc.shape[0]
+    Ap = pow2(A)
+    head = _head(rss * var_e, beta_old, mask)
+    cls = _class_coefs(mpm, lss, mask, varc, logpi, ive, z, mask[:, None] & anz)
+    cls = jnp.pad(cls, ((0, 0), (0, 0), (0, Ap - A), (0, 0)))
+    ann = jnp.stack([_pad_last(x, Ap) for x in (ua, anz)], axis=1)
+    return head, cls, ann
 
 
-def _make_rcplus_kernel(A, K):
-    AK = A * K
-    oua, oaz = 8, 8 + AK
-    o0 = 8 + 2 * AK
-    oq0, oq1, obc, occ = o0, o0 + AK, o0 + 2 * AK, o0 + 3 * AK
+# ------------------------------------------------------------ kernel frame
 
-    def kern(gram_ref, pk_ref, beta_ref, u_ref, delta_ref,
-             cls_ref, bs_ref, nza_ref):
+
+def _frame(locus, n_gram, n_in, n_int):
+    """Kernel for one virtual chain v = program_id(0) at block step t.
+
+    Refs: t (1,), n_gram Gram streams (T, B, V, B), r0 (V, B), r0_raw when
+    n_gram == 2, n_in coefficient arrays (T, V, B, ...); outputs beta and u
+    (V, B) f32, n_int (V, B) int32 and any per-locus row outputs.
+    locus(v, j, t, dots, pres, ins, rows) -> (bnew, u_j, ints)."""
+
+    def kernel(t_ref, *refs):
+        grams = refs[:n_gram]
+        r0s = refs[n_gram:2 * n_gram]
+        ins = refs[2 * n_gram:2 * n_gram + n_in]
+        beta_ref, u_ref, *outs = refs[2 * n_gram + n_in:]
+        int_refs, rows = outs[:n_int], outs[n_int:]
+        v = pl.program_id(0)
+        t = t_ref[0]
         B = u_ref.shape[1]
-        lane = _lane_iota(B)
-        akiota = jax.lax.broadcasted_iota(jnp.int32, (1, AK), 1)[0]
-        aid = akiota // K
-        tri = akiota[:, None] <= akiota[None, :]
-        aiota = jax.lax.broadcasted_iota(jnp.int32, (1, A), 1)[0]
-
-        def body(j, u):
-            s = pk_ref[pl.ds(j, 1), :][0]
-            row = gram_ref[pl.ds(j, 1), :]
-            base = s[0] + jnp.sum(row * u)  # own coefficient excluded (u_j = 0)
-            gjj = jnp.sum(jnp.where(lane == j, row, 0.0))
-            bold = s[1]
-            q0 = s[oq0:oq0 + AK]
-            q1 = s[oq1:oq1 + AK]
-            bco = s[obc:obc + AK]
-            cco = s[occ:occ + AK]
-            uak = s[oua:oua + AK]
-            anzk = s[oaz:oaz + AK]
-            maskj = s[2] != 0
-
-            def astep(a, carry):
-                ujc, tempb, deltaj, clsA, bsA, nzA = carry
-                prea = base + gjj * ujc
-                in_a = aid == a
-                logl = q0 + q1 * prea * prea
-                m = jnp.max(jnp.where(in_a, logl, -1e30))
-                ek = jnp.where(in_a, jnp.exp(logl - m), 0.0)
-                pj = ek / jnp.sum(ek)
-                cumj = jnp.sum(jnp.where(tri, pj[:, None], 0.0), axis=0)
-                ua_a = jnp.sum(jnp.where(akiota == a * K, uak, 0.0))
-                anz_a = jnp.sum(jnp.where(akiota == a * K, anzk, 0.0)) != 0
-                cls = jnp.minimum(jnp.sum(
-                    ((cumj < ua_a) & in_a).astype(jnp.int32)).astype(jnp.int32), K - 1)
-                hot = akiota == a * K + cls
-                bsel = jnp.sum(jnp.where(hot, bco, 0.0))
-                sel_nz = bsel > 0.0  # bco zeroed for null class / inactive
-                bs = jnp.sum(jnp.where(hot, cco + bco * prea, 0.0))
-                activ = anz_a & maskj
-                ujc = ujc - bs
-                tempb = tempb + bs
-                deltaj = jnp.where(activ, cls + 1, deltaj).astype(jnp.int32)
-                hotA = aiota == a
-                clsA = jnp.where(hotA, jnp.where(activ, cls + 1, 0), clsA).astype(jnp.int32)
-                bsA = jnp.where(hotA, bs, bsA)
-                nzA = jnp.where(hotA, sel_nz.astype(jnp.int32), nzA)
-                return ujc, tempb, deltaj, clsA, bsA, nzA
-
-            init = (bold, jnp.zeros((), F32), jnp.zeros((), jnp.int32),
-                    jnp.zeros((A,), jnp.int32), jnp.zeros((A,), F32),
-                    jnp.zeros((A,), jnp.int32))
-            ujf, bnew, deltaj, clsA, bsA, nzA = jax.lax.fori_loop(0, A, astep, init)
-            beta_ref[pl.ds(j, 1), 0] = bnew[None]
-            delta_ref[pl.ds(j, 1), 0] = deltaj[None]
-            cls_ref[pl.ds(j, 1), :] = clsA[None]
-            bs_ref[pl.ds(j, 1), :] = bsA[None]
-            nza_ref[pl.ds(j, 1), :] = nzA[None]
-            return jnp.where(lane == j, ujf, u)
-
-        u = jax.lax.fori_loop(0, B, body, jnp.zeros((1, B), F32))
-        u_ref[:, :] = u
-
-    return kern
-
-
-def rcplus_block_scan(gram, pk_b, A, K, interpret=False):
-    B = gram.shape[0]
-    outs = (
-        jax.ShapeDtypeStruct((B, 1), F32),
-        jax.ShapeDtypeStruct((1, B), F32),
-        jax.ShapeDtypeStruct((B, 1), jnp.int32),
-        jax.ShapeDtypeStruct((B, A), jnp.int32),
-        jax.ShapeDtypeStruct((B, A), F32),
-        jax.ShapeDtypeStruct((B, A), jnp.int32),
-    )
-    beta, u, delta, cls_a, bs_a, nz_a = pl.pallas_call(
-        _make_rcplus_kernel(A, K),
-        out_shape=outs,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
-        out_specs=tuple(pl.BlockSpec(memory_space=pltpu.VMEM) for _ in outs),
-        interpret=interpret,
-    )(gram.astype(F32), pk_b)
-    return beta[:, 0], u[0], delta[:, 0], cls_a, bs_a, nz_a
-
-
-def _make_rcplus_kernel_v(A, K):
-    AK = A * K
-    oua, oaz = 8, 8 + AK
-    o0 = 8 + 2 * AK
-    oq0, oq1, obc, occ = o0, o0 + AK, o0 + 2 * AK, o0 + 3 * AK
-
-    def kern(gram_ref, pk_ref, beta_ref, u_ref, delta_ref,
-             cls_ref, bs_ref, nza_ref):
-        V, B = u_ref.shape
-        lane = jax.lax.broadcasted_iota(jnp.int32, (V, B), 1)
-        ak1 = jax.lax.broadcasted_iota(jnp.int32, (1, AK), 1)[0]
-        aid1 = ak1 // K
-        tri = ak1[:, None] <= ak1[None, :]
-        akV = jax.lax.broadcasted_iota(jnp.int32, (V, AK), 1)
-        aiotaV = jax.lax.broadcasted_iota(jnp.int32, (V, A), 1)
+        lane = lax.broadcasted_iota(I32, (B,), 0)
 
         def body(j, carry):
-            u, beta, delta = carry
-            s = pk_ref[pl.ds(j, 1), :, :][0]  # (V, W)
-            row = gram_ref[pl.ds(j, 1), :, :][0]  # (V, B)
-            base = s[:, 0] + jnp.sum(row * u, axis=-1)  # (V,)
-            gjj = jnp.sum(jnp.where(lane == j, row, 0.0), axis=-1)
-            boldv = s[:, 1]
-            q0 = s[:, oq0:oq0 + AK]
-            q1 = s[:, oq1:oq1 + AK]
-            bco = s[:, obc:obc + AK]
-            cco = s[:, occ:occ + AK]
-            uak = s[:, oua:oua + AK]
-            anzk = s[:, oaz:oaz + AK]
-            maskj = s[:, 2] != 0
-
-            def astep(a, ac):
-                ujc, tempb, deltaj, clsA, bsA, nzA = ac
-                prea = base + gjj * ujc  # (V,)
-                in_a = aid1 == a  # (AK,)
-                logl = q0 + q1 * (prea * prea)[:, None]  # (V, AK)
-                m = jnp.max(jnp.where(in_a[None], logl, -1e30), axis=-1, keepdims=True)
-                ek = jnp.where(in_a[None], jnp.exp(logl - m), 0.0)
-                pj = ek / jnp.sum(ek, axis=-1, keepdims=True)
-                cumj = jnp.sum(jnp.where(tri[None], pj[:, :, None], 0.0), axis=1)
-                ua_a = jnp.sum(jnp.where(akV == a * K, uak, 0.0), axis=-1)  # (V,)
-                anz_a = jnp.sum(jnp.where(akV == a * K, anzk, 0.0), axis=-1) != 0
-                cls = jnp.minimum(jnp.sum(
-                    ((cumj < ua_a[:, None]) & in_a[None]).astype(jnp.int32), axis=-1
-                ).astype(jnp.int32), K - 1)
-                hot = akV == (a * K + cls)[:, None]
-                bsel = jnp.sum(jnp.where(hot, bco, 0.0), axis=-1)
-                sel_nz = bsel > 0.0
-                bs = jnp.sum(jnp.where(hot, cco + bco * prea[:, None], 0.0), axis=-1)
-                activ = anz_a & maskj
-                ujc = ujc - bs
-                tempb = tempb + bs
-                deltaj = jnp.where(activ, cls + 1, deltaj).astype(jnp.int32)
-                hotA = aiotaV == a
-                clsA = jnp.where(
-                    hotA, jnp.where(activ, cls + 1, 0)[:, None], clsA
-                ).astype(jnp.int32)
-                bsA = jnp.where(hotA, bs[:, None], bsA)
-                nzA = jnp.where(hotA, sel_nz.astype(jnp.int32)[:, None], nzA)
-                return ujc, tempb, deltaj, clsA, bsA, nzA
-
-            init = (boldv, jnp.zeros((V,), F32), jnp.zeros((V,), jnp.int32),
-                    jnp.zeros((V, A), jnp.int32), jnp.zeros((V, A), F32),
-                    jnp.zeros((V, A), jnp.int32))
-            ujf, bnew, deltaj, clsA, bsA, nzA = jax.lax.fori_loop(0, A, astep, init)
-            cls_ref[pl.ds(j, 1), :, :] = clsA[None]
-            bs_ref[pl.ds(j, 1), :, :] = bsA[None]
-            nza_ref[pl.ds(j, 1), :, :] = nzA[None]
+            u, beta, ints = carry
+            dots = tuple(jnp.sum(g[t, j, v, :] * u) for g in grams)
+            pres = tuple(r[v, j] for r in r0s)
+            bnew, uj, ivals = locus(v, j, t, dots, pres, ins, rows, grams)
             sel = lane == j
-            u = jnp.where(sel, ujf[:, None], u)
-            beta = jnp.where(sel, bnew[:, None], beta)
-            delta = jnp.where(sel, deltaj[:, None], delta)
-            return u, beta, delta
+            u = jnp.where(sel, uj, u)
+            beta = jnp.where(sel, bnew, beta)
+            ints = tuple(jnp.where(sel, x, c) for x, c in zip(ivals, ints))
+            return u, beta, ints
 
-        u, beta, delta = jax.lax.fori_loop(
-            0, B, body,
-            (jnp.zeros((V, B), F32), jnp.zeros((V, B), F32), jnp.zeros((V, B), jnp.int32)),
-        )
-        beta_ref[:, :] = beta
-        u_ref[:, :] = u
-        delta_ref[:, :] = delta
+        zero = jnp.zeros((B,), F32)
+        init = (zero, zero, tuple(jnp.zeros((B,), I32) for _ in int_refs))
+        u, beta, ints = lax.fori_loop(0, B, body, init)
+        beta_ref[v, :] = beta
+        u_ref[v, :] = u
+        for r, x in zip(int_refs, ints):
+            r[v, :] = x
 
-    return kern
+    return kernel
 
 
-def rcplus_block_scan_v(gram_t, pk, A, K, interpret=False):
-    """gram_t locus-major (B,V,B), pk (V,B,W). Returns (V,B) beta/u/delta and
-    (V,B,A) cls/bs/nz (written locus-major, re-majored here)."""
-    B, V = _gram_dims(gram_t)
-    pk_t = jnp.swapaxes(pk, 0, 1)  # (B, V, W)
-    outs = (
-        jax.ShapeDtypeStruct((V, B), F32),
-        jax.ShapeDtypeStruct((V, B), F32),
-        jax.ShapeDtypeStruct((V, B), jnp.int32),
-        jax.ShapeDtypeStruct((B, V, A), jnp.int32),
-        jax.ShapeDtypeStruct((B, V, A), F32),
-        jax.ShapeDtypeStruct((B, V, A), jnp.int32),
-    )
-    beta, u, delta, cls_a, bs_a, nz_a = _pallas_step_call(
-        _make_rcplus_kernel_v(A, K), gram_t, pk_t, outs, interpret)
-    return (beta, u, delta, jnp.swapaxes(cls_a, 0, 1),
-            jnp.swapaxes(bs_a, 0, 1), jnp.swapaxes(nz_a, 0, 1))
+def _call(name, kernel, grams, r0s, t, ins, n_int, rows=(), interpret=False):
+    T, B, V, _ = grams[0].shape
+    outs = ([jax.ShapeDtypeStruct((V, B), F32)] * 2
+            + [jax.ShapeDtypeStruct((V, B), I32)] * n_int
+            + [jax.ShapeDtypeStruct((V, B) + s, d) for s, d in rows])
+    return pl.pallas_call(
+        kernel,
+        out_shape=tuple(outs),
+        grid=(V,),
+        interpret=interpret,
+        name=name,
+        compiler_params=pltriton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES),
+    )(jnp.asarray(t, I32).reshape(1),
+      *[g.astype(F32) for g in grams], *[r.astype(F32) for r in r0s],
+      *[x.astype(F32) for x in ins])
+
+
+def _cdf_draw(probs, u, n):
+    """Inverse-CDF draw over the last axis (categorical_from_probs)."""
+    cls = jnp.sum((jnp.cumsum(probs) < u).astype(I32))
+    return jnp.minimum(cls, n - 1)
+
+
+# ------------------------------------------------------------ the six scans
+#
+# Shapes: gram/graw (T, B, V, B) locus-major, r0 (V, B), coefficients
+# (T, V, B, ...). Each returns (beta (V, B), u (V, B), ...).
+
+
+def _gauss_locus(v, j, t, dots, pres, ins, rows, grams):
+    (hd,) = ins
+    pre = pres[0] + hd[t, v, j, 0] + dots[0]
+    bnew = hd[t, v, j, 3] + hd[t, v, j, 2] * pre
+    return bnew, hd[t, v, j, 1] - bnew, ()
+
+
+def gauss_block_scan(gram, t, r0, head, interpret=False):
+    return _call("gibbs_scan_gauss", _frame(_gauss_locus, 1, 1, 0),
+                 (gram,), (r0,), t, (head,), 0, interpret=interpret)
+
+
+def _bc_locus(v, j, t, dots, pres, ins, rows, grams):
+    (hd,) = ins
+    pre = pres[0] + hd[t, v, j, 0] + dots[0]
+    rrr = pres[1] + hd[t, v, j, 7] + dots[1] if len(dots) == 2 else pre
+    inc = hd[t, v, j, 2] + hd[t, v, j, 3] * rrr * rrr < hd[t, v, j, 4]
+    bnew = jnp.where(inc, hd[t, v, j, 6] + hd[t, v, j, 5] * pre, 0.0)
+    return bnew, hd[t, v, j, 1] - bnew, (inc.astype(I32),)
+
+
+def bc_block_scan(gram, t, r0, head, graw=None, r0_raw=None, interpret=False):
+    """BayesB/C. Weighted "D" models pass the raw Gram and raw r0: the
+    weighted Gram drives rhs, the raw one the indicator's rrr
+    (mme.jl:71-75, functions.jl:168)."""
+    grams, r0s = ((gram,), (r0,)) if graw is None else ((gram, graw), (r0, r0_raw))
+    name = "gibbs_scan_bc" if graw is None else "gibbs_scan_bc_w"
+    return _call(name, _frame(_bc_locus, len(grams), 1, 1),
+                 grams, r0s, t, (head,), 1, interpret=interpret)
+
+
+def _make_r_locus(K):
+    def locus(v, j, t, dots, pres, ins, rows, grams):
+        hd, cf = ins
+        pre = pres[0] + hd[t, v, j, 0] + dots[0]
+        q0, q1, bco, cco = (cf[t, v, j, i, :] for i in range(4))
+        logl = q0 + q1 * (pre * pre)
+        e = jnp.exp(logl - jnp.max(logl))
+        cls = _cdf_draw(e / jnp.sum(e), hd[t, v, j, 2], K)
+        hot = lax.broadcasted_iota(I32, q0.shape, 0) == cls
+        bnew = jnp.sum(jnp.where(hot, cco + bco * pre, 0.0))
+        delta = jnp.where(hd[t, v, j, 3] != 0, cls + 1, 0).astype(I32)
+        return bnew, hd[t, v, j, 1] - bnew, (delta,)
+
+    return locus
+
+
+def r_block_scan(gram, t, r0, head, cls, n_classes, interpret=False):
+    return _call("gibbs_scan_r", _frame(_make_r_locus(n_classes), 1, 2, 1),
+                 (gram,), (r0,), t, (head, cls), 1, interpret=interpret)
+
+
+def _make_rcpi_locus(A, K):
+    def locus(v, j, t, dots, pres, ins, rows, grams):
+        hd, cf, an = ins
+        (aprob_ref,) = rows
+        pre = pres[0] + hd[t, v, j, 0] + dots[0]
+        q0, q1, bco, cco = (cf[t, v, j, i, :, :] for i in range(4))  # (Ap, Kp)
+        aprob, g1, g2, anz = (an[t, v, j, i, :] for i in range(4))  # (Ap,)
+        logl = q0 + q1 * (pre * pre)
+        e = jnp.exp(logl - jnp.max(logl)) * anz[:, None]
+        pa = aprob * jnp.sum(e, axis=1)
+        a_sel = _cdf_draw(pa / jnp.sum(pa), hd[t, v, j, 2], A)
+        in_row = lax.broadcasted_iota(I32, aprob.shape, 0) == a_sel
+        row = jnp.sum(jnp.where(in_row[:, None], e, 0.0), axis=0)
+        cls = _cdf_draw(row / jnp.sum(row), hd[t, v, j, 3], K)
+        hot = in_row[:, None] & (lax.broadcasted_iota(I32, q0.shape, 1) == cls)
+        bnew = jnp.sum(jnp.where(hot, cco + bco * pre, 0.0))
+        gam = jnp.where(in_row, g2, g1) * anz
+        masked = hd[t, v, j, 4] != 0
+        aprob_ref[v, j, :] = jnp.where(masked, gam / jnp.sum(gam), aprob)
+        delta = jnp.where(masked, cls + 1, 0).astype(I32)
+        acat = jnp.where(masked, a_sel + 1, 0).astype(I32)
+        return bnew, hd[t, v, j, 1] - bnew, (delta, acat)
+
+    return locus
+
+
+def rcpi_block_scan(gram, t, r0, head, cls, ann, n_annot, n_classes,
+                    interpret=False):
+    """Returns beta, u, delta, acat (V, B) and the updated annotation
+    probabilities (V, B, A)."""
+    Ap = ann.shape[-1]
+    out = _call("gibbs_scan_rcpi", _frame(_make_rcpi_locus(n_annot, n_classes), 1, 3, 2),
+                (gram,), (r0,), t, (head, cls, ann), 2, rows=(((Ap,), F32),),
+                interpret=interpret)
+    return out[:4] + (out[4][..., :n_annot],)
+
+
+def _make_rcplus_locus(A, K):
+    def locus(v, j, t, dots, pres, ins, rows, grams):
+        hd, cf, an = ins
+        cls_ref, bs_ref, nz_ref = rows
+        base = pres[0] + hd[t, v, j, 0] + dots[0]  # own coefficient excluded (u_j = 0)
+        gjj = grams[0][t, j, v, j]
+        masked = hd[t, v, j, 2] != 0
+        ujc = hd[t, v, j, 1]
+        tempb = jnp.zeros((), F32)
+        deltaj = jnp.zeros((), I32)
+        Ap = cf.shape[-2]
+        aiota = lax.broadcasted_iota(I32, (Ap,), 0)
+        clsA = jnp.zeros((Ap,), I32)
+        bsA = jnp.zeros((Ap,), F32)
+        nzA = jnp.zeros((Ap,), I32)
+        for a in range(A):  # additive components, in annotation order
+            prea = base + gjj * ujc
+            q0, q1, bco, cco = (cf[t, v, j, i, a, :] for i in range(4))
+            logl = q0 + q1 * (prea * prea)
+            ek = jnp.exp(logl - jnp.max(logl))
+            cls = _cdf_draw(ek / jnp.sum(ek), an[t, v, j, 0, a], K)
+            hot = lax.broadcasted_iota(I32, q0.shape, 0) == cls
+            sel_nz = jnp.sum(jnp.where(hot, bco, 0.0)) > 0.0  # b is 0 for null/inactive
+            bs = jnp.sum(jnp.where(hot, cco + bco * prea, 0.0))
+            active = (an[t, v, j, 1, a] != 0) & masked
+            ujc = ujc - bs
+            tempb = tempb + bs
+            deltaj = jnp.where(active, cls + 1, deltaj).astype(I32)
+            hot_a = aiota == a
+            clsA = jnp.where(hot_a, jnp.where(active, cls + 1, 0), clsA).astype(I32)
+            bsA = jnp.where(hot_a, bs, bsA)
+            nzA = jnp.where(hot_a, sel_nz.astype(I32), nzA)
+        cls_ref[v, j, :] = clsA
+        bs_ref[v, j, :] = bsA
+        nz_ref[v, j, :] = nzA
+        return tempb, ujc, (deltaj,)
+
+    return locus
+
+
+def rcplus_block_scan(gram, t, r0, head, cls, ann, n_annot, n_classes,
+                      interpret=False):
+    """Returns beta, u, delta (V, B) and per-annotation class, component
+    and inclusion (V, B, A)."""
+    Ap = ann.shape[-1]
+    out = _call("gibbs_scan_rcplus", _frame(_make_rcplus_locus(n_annot, n_classes), 1, 3, 1),
+                (gram,), (r0,), t, (head, cls, ann), 1,
+                rows=(((Ap,), I32), ((Ap,), F32), ((Ap,), I32)),
+                interpret=interpret)
+    return out[:3] + tuple(x[..., :n_annot] for x in out[3:])

@@ -1,41 +1,34 @@
-"""2-bit planar genotype packing + Pallas TPU kernels for the packed passes.
+"""2-bit planar genotype packing and the two panel passes over packed rows.
 
-Dosages are {0,1,2}: int8 storage wastes 4x the HBM bandwidth the sweep is
-bound by (the gather `Mc @ ycorr` and scatter `ycorr += u @ Mc` passes are
-the entire per-sweep traffic at production shapes — see README roofline).
-Packing four dosages per byte cuts the genotype bytes 4x; the unpack is a
-handful of VPU bit ops per value, paid while the next tile streams in.
+Dosages are {0,1,2}: int8 storage spends 4x the memory traffic the sweep
+is bound by (the gather `Mc @ ycorr` and the scatter `ycorr += u @ Mc` read
+the whole panel every sweep). Packing four dosages per byte cuts the
+genotype bytes 4x; the unpack is a few integer ops per value, fused into
+the pass that reads the byte.
 
-Planar layout (the key trick): with q packed lanes, byte j of a locus row
-holds individuals j, j+q, j+2q, j+3q in its four 2-bit fields:
+Planar layout: with q packed lanes, byte j of a locus row holds
+individuals j, j+q, j+2q, j+3q in its four 2-bit fields:
 
     packed[:, j] = g[j] | g[j+q] << 2 | g[j+2q] << 4 | g[j+3q] << 6
 
 so unpacking is  concat([pk & 3, (pk>>2) & 3, (pk>>4) & 3, (pk>>6) & 3])
-along the lane axis — four lane-contiguous slices in original individual
-order, no interleave/relayout anywhere (a bit-interleaved layout would need
-a cross-lane shuffle per tile, which Mosaic lowers poorly). The residual
-vector is viewed as (4, q) by the same reshape, which is layout-free.
+along the lane axis — four contiguous slices in original individual order,
+and the residual vector is viewed as (4, q) by a plain reshape.
 
-The individual axis is padded to n4 = 4*q with q a multiple of 128 (lane
-alignment); padded genotypes are 0 so they never contribute to the gather,
-and the sweep keeps padded residual entries pinned at zero.
+The individual axis is padded to n4 = 4*q with q a multiple of 128 (part
+of the `from_packed` storage format); padded genotypes are 0, so they
+never contribute to a pass.
 
-Reference equivalence: packing is lossless for 0..3 dosages, so the
-pure-JAX unpack path (`unpack2`, used on CPU/f64 golden tests) is
-bit-identical to unpacked int8 storage. The reference stores dense f64
+Reference equivalence: packing is lossless for 0..3 dosages, so the exact
+unpack path (`unpack2` followed by the same product as int8 storage) is
+bit-identical to unpacked storage. The reference stores dense f64
 (prepMatVec.jl:129) — 32x the bytes per pass.
 """
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 F32 = jnp.float32
 _LANES = 128
@@ -74,281 +67,33 @@ def pack2_jnp(g):
 
 
 def unpack2(pk, dtype=F32):
-    """Exact inverse of the planar pack: (..., R, q) uint8 -> (..., R, 4q).
-
-    Pure jnp — the CPU/golden-test path, and the assembly-time Gram unpack.
-    """
+    """Exact inverse of the planar pack: (..., R, q) uint8 -> (..., R, 4q)."""
     pki = pk.astype(jnp.int32)
     parts = [(pki >> (2 * k)) & 3 for k in range(4)]
     return jnp.concatenate(parts, axis=-1).astype(dtype)
 
 
-# ------------------------------------------------------------------ kernels
+def _planes(pk, dtype):
+    """(R, q) uint8 -> (R, 4, q) dosages, plane k = bits 2k..2k+1. Meant to
+    be fused by XLA into the reduction that consumes it."""
+    shifts = (2 * jnp.arange(4, dtype=jnp.uint8))[:, None]
+    return ((pk[:, None, :] >> shifts) & 3).astype(dtype)
 
 
-def _make_matvec_kernel(impl: str):
-    def _matvec_kernel(pk_ref, y4_ref, out_ref):
-        qi = pl.program_id(1)
-        pk = pk_ref[:].astype(jnp.int32)
-        if impl == "vpu":
-            acc = (pk & 3).astype(F32) * y4_ref[0:1, :]
-            acc += ((pk >> 2) & 3).astype(F32) * y4_ref[1:2, :]
-            acc += ((pk >> 4) & 3).astype(F32) * y4_ref[2:3, :]
-            acc += ((pk >> 6) & 3).astype(F32) * y4_ref[3:4, :]
-            partial = jnp.sum(acc, axis=1, keepdims=True)
-        else:
-            # MXU variant (VERDICT r4 experiment): in-register unpack to a
-            # plane then (rt, qt) @ (qt, 1) dot_general on the MXU. The
-            # per-plane matvec uses one MXU output column; wins only if the
-            # VPU multiply+reduce is the bottleneck, measured by
-            # scripts/micro_frontier.py.
-            prec = (jax.lax.Precision.HIGHEST if impl == "mxu_hi"
-                    else jax.lax.Precision.DEFAULT)
-            parts = [
-                jax.lax.dot_general(
-                    ((pk >> (2 * k)) & 3).astype(F32),
-                    jnp.transpose(y4_ref[k:k + 1, :]),
-                    (((1,), (0,)), ((), ())),
-                    precision=prec, preferred_element_type=F32)
-                for k in range(4)
-            ]
-            partial = parts[0] + parts[1] + parts[2] + parts[3]
+def gather(pk, y):
+    """r = unpack(pk)[:, :n] @ y as one multiply-and-reduce over the planar
+    view: pk (R, q) uint8, y (n,) with n <= 4q. Returns (R,) in y's dtype.
 
-        @pl.when(qi == 0)
-        def _():
-            out_ref[:] = partial
-
-        @pl.when(qi != 0)
-        def _():
-            out_ref[:] += partial
-
-    return _matvec_kernel
+    Elementwise products summed in y's dtype (no matrix unit, so no
+    reduced-precision product); XLA fuses the unpack into the reduction,
+    which reads each packed byte once."""
+    q = pk.shape[-1]
+    y4 = jnp.pad(y, (0, 4 * q - y.shape[0])).reshape(4, q)
+    return jnp.sum(_planes(pk, y.dtype) * y4, axis=(1, 2))
 
 
-def _matvec_impl() -> str:
-    """Gather kernel variant from NG_PACK2_MATVEC, read when each shape
-    first traces (an import-time read would silently ignore env changes
-    made after `import nextgp_tpu`; already-traced shapes stay cached)."""
-    return os.environ.get("NG_PACK2_MATVEC", "vpu")
-
-
-def _tile_sizes(R, q):
-    """Scatter/rank tiles: the sublane-reducing rank kernel wants LONG
-    NARROW tiles — measured at 36,864 x 12,544 (scripts/micro_frontier.py,
-    ladder_results.jsonl 2026-08-21): (2048, 256) 32.6 ms/pass vs (512, 256)
-    39.9 and (512, 1792) 55.7. Wide lanes make the sublane reduction the
-    bottleneck; long rows amortize the per-tile reduce."""
-    rt = R if R <= 2048 else 2048
-    while R % rt:
-        rt //= 2
-    qt = 256
-    while q % qt:
-        qt //= 2
-    return rt, qt
-
-
-def _tile_sizes_mv(R, q):
-    """Gather/matvec tiles: the lane-reducing matvec kernel wants LARGE
-    tiles — the old halving rule collapses to qt=256 when q = 2^8*49
-    (n=50k), costing 30% of the pass (42.1 -> 31.9 ms at (1024, 1792);
-    scripts/micro_frontier.py). Pick the largest lane-aligned DIVISOR of q
-    up to 2048 and a row tile up to 1024."""
-    rt = R if R <= 1024 else 1024
-    while R % rt:
-        rt //= 2
-    qt = max(
-        (d for d in range(128, min(q, 2048) + 1, 128) if q % d == 0),
-        default=None,
-    )
-    if qt is None:  # q < 128 never happens via packed_q; halve defensively
-        qt = 2048
-        while q % qt:
-            qt //= 2
-    return rt, qt
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def matvec(pk, y4, interpret=False):
-    """r0 = unpack(pk) @ y4planar. pk (R, q) uint8, y4 (8, q) f32 with rows
-    0..3 = residual.reshape(4, q) (rows 4..7 ignored). Returns (R,) f32."""
-    R, q = pk.shape
-    rt, qt = _tile_sizes_mv(R, q)
-    out = pl.pallas_call(
-        _make_matvec_kernel(_matvec_impl()),
-        grid=(R // rt, q // qt),
-        in_specs=[
-            pl.BlockSpec((rt, qt), lambda i, j: (i, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, qt), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((rt, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((R, 1), F32),
-        interpret=interpret,
-    )(pk, y4)
-    return out[:, 0]
-
-
-def _make_rank_kernel(impl: str):
-    def _rank_kernel(pk_ref, u_ref, out_ref):
-        ri = pl.program_id(1)
-        pk = pk_ref[:].astype(jnp.int32)
-        if impl == "vpu":
-            # full-f32 VPU multiply + sublane reduce (exact, like the
-            # matvec). u arrives as a column vector so no in-kernel
-            # lane->sublane relayout is needed.
-            uc = u_ref[:, 0:1]  # (rt, 1)
-            rows = [
-                jnp.sum(((pk >> (2 * k)) & 3).astype(F32) * uc,
-                        axis=0, keepdims=True)
-                for k in range(4)
-            ]
-        elif impl == "mxu_split":
-            # MXU with a two-term bf16 split of u: u = hi + lo where both
-            # halves are bf16-exact, the dosage planes are bf16-exact
-            # ({0..3}), and accumulation is f32 — recovers ~16 mantissa bits
-            # (rel err ~2e-6 measured). REJECTED for production: r5 shootout
-            # at 36,864 x 12,544 (scripts/micro_scatter_impl.py,
-            # ladder_results.jsonl) measured 42.7 ms/pass vs VPU 33.4 —
-            # Mosaic does not share the unpacked plane between the two dots,
-            # so the split pays ~2x the plain-MXU cost (25.9 ms, but that
-            # one truncates u to bf16: 2e-3 rel error in every residual
-            # correction). Kept selectable via NG_PACK2_RANK for re-runs.
-            ur = jnp.transpose(u_ref[:, 0:1])  # (1, rt)
-            u_hi = ur.astype(jnp.bfloat16).astype(F32)
-            u_lo = ur - u_hi
-            rows = []
-            for k in range(4):
-                plane = ((pk >> (2 * k)) & 3).astype(F32)
-                d_hi = jax.lax.dot_general(
-                    u_hi, plane, (((1,), (0,)), ((), ())),
-                    precision=jax.lax.Precision.DEFAULT,
-                    preferred_element_type=F32)
-                d_lo = jax.lax.dot_general(
-                    u_lo, plane, (((1,), (0,)), ((), ())),
-                    precision=jax.lax.Precision.DEFAULT,
-                    preferred_element_type=F32)
-                rows.append(d_hi + d_lo)
-        else:
-            # MXU row-vector x matrix; HIGHEST recovers ~f32 via multi-pass
-            # (default f32 MXU passes truncate to bf16, ~1e-3 rel error)
-            prec = (jax.lax.Precision.HIGHEST if impl == "mxu_hi"
-                    else jax.lax.Precision.DEFAULT)
-            ur = jnp.transpose(u_ref[:, 0:1])  # (1, rt)
-            rows = [
-                jax.lax.dot_general(
-                    ur, ((pk >> (2 * k)) & 3).astype(F32),
-                    (((1,), (0,)), ((), ())),
-                    precision=prec, preferred_element_type=F32)
-                for k in range(4)
-            ]
-        partial = jnp.concatenate(rows + [jnp.zeros_like(rows[0])] * 4, axis=0)
-
-        @pl.when(ri == 0)
-        def _():
-            out_ref[:] = partial
-
-        @pl.when(ri != 0)
-        def _():
-            out_ref[:] += partial
-
-    return _rank_kernel
-
-
-def _rank_impl() -> str:
-    return os.environ.get("NG_PACK2_RANK", "vpu")
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def rank_update(pk, u, interpret=False):
-    """dy = u @ unpack(pk), returned planar as (8, q) f32 (rows 0..3 live,
-    i.e. dy_full = out[:4].reshape(4q,))."""
-    R, q = pk.shape
-    rt, qt = _tile_sizes(R, q)
-    out = pl.pallas_call(
-        _make_rank_kernel(_rank_impl()),
-        grid=(q // qt, R // rt),
-        in_specs=[
-            pl.BlockSpec((rt, qt), lambda j, i: (i, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((rt, 1), lambda j, i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, qt), lambda j, i: (0, j), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((8, q), F32),
-        interpret=interpret,
-    )(pk, u.reshape(R, 1))
-    return out
-
-
-def y_planar(yp):
-    """(4q,) f32 residual (already padded) -> (8, q) kernel view."""
-    q = yp.shape[0] // 4
-    return jnp.concatenate([yp.reshape(4, q), jnp.zeros((4, q), yp.dtype)], axis=0)
-
-
-# ------------------------------------------------- step-indexed kernel entry
-#
-# The sweep's outer lax.scan used to carry the packed panel as a scan leaf,
-# which makes XLA materialize a copy of each step's (rows, q) slice before
-# the pallas call — a full extra read+write pass over the panel per sweep
-# (profiled at ~20% of sweep time at 50k x 73.7k). These variants instead
-# take the FULL panel plus the step index as a scalar-prefetch argument:
-# the BlockSpec index_map offsets the DMA into the right rows of HBM, so
-# no slice ever exists.
-
-
-def _matvec_kernel_sp(t_ref, pk_ref, y4_ref, out_ref):
-    _make_matvec_kernel(_matvec_impl())(pk_ref, y4_ref, out_ref)
-
-
-@functools.partial(jax.jit, static_argnames=("rows", "interpret"))
-def matvec_step(pk_all, t, y4, rows, interpret=False):
-    """r0 for step t: unpack(pk_all[t*rows:(t+1)*rows]) @ y4planar.
-
-    pk_all (T*rows, q) uint8 (all steps, row-major), t scalar int, y4 as in
-    `matvec`. Equals matvec(pk_all[t*rows:(t+1)*rows], y4) without
-    materializing the step slice."""
-    _, q = pk_all.shape
-    rt, qt = _tile_sizes_mv(rows, q)
-    gs = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(rows // rt, q // qt),
-        in_specs=[
-            pl.BlockSpec((rt, qt), lambda i, j, t_ref: (t_ref[0] * (rows // rt) + i, j)),
-            pl.BlockSpec((8, qt), lambda i, j, t_ref: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((rt, 1), lambda i, j, t_ref: (i, 0)),
-    )
-    out = pl.pallas_call(
-        _matvec_kernel_sp,
-        out_shape=jax.ShapeDtypeStruct((rows, 1), F32),
-        grid_spec=gs,
-        interpret=interpret,
-    )(jnp.asarray(t, jnp.int32).reshape(1), pk_all, y4)
-    return out[:, 0]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def rank_update_step(pk_all, t, u, interpret=False):
-    """dy for step t: u @ unpack(pk_all[t*rows:(t+1)*rows]), rows = len(u).
-    Planar (8, q) output as in `rank_update`; no step slice materialized."""
-    rows = u.shape[0]
-    _, q = pk_all.shape
-    rt, qt = _tile_sizes(rows, q)
-    kernel = _make_rank_kernel(_rank_impl())
-
-    def _kernel_sp(t_ref, pk_ref, u_ref, out_ref):
-        kernel(pk_ref, u_ref, out_ref)
-
-    gs = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(q // qt, rows // rt),
-        in_specs=[
-            pl.BlockSpec((rt, qt), lambda j, i, t_ref: (t_ref[0] * (rows // rt) + i, j)),
-            pl.BlockSpec((rt, 1), lambda j, i, t_ref: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec((8, qt), lambda j, i, t_ref: (0, j)),
-    )
-    return pl.pallas_call(
-        _kernel_sp,
-        out_shape=jax.ShapeDtypeStruct((8, q), F32),
-        grid_spec=gs,
-        interpret=interpret,
-    )(jnp.asarray(t, jnp.int32).reshape(1), pk_all, u.reshape(rows, 1))
+def scatter(pk, u, n):
+    """d = u @ unpack(pk)[:, :n] as one column reduction over the rows:
+    pk (R, q) uint8, u (R,). Returns (n,) in u's dtype."""
+    d4 = jnp.sum(_planes(pk, u.dtype) * u[:, None, None], axis=0)
+    return d4.reshape(-1)[:n]

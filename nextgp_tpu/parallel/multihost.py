@@ -1,11 +1,11 @@
 """Multi-host startup and chain-redundancy helpers.
 
 The reference is a single Julia process (SURVEY.md §2.6: no distributed
-backend of any kind). Here multi-host runs use JAX's standard bootstrap:
-every host calls `init_distributed()`, builds the same global mesh over
-`jax.devices()` (ICI within a slice, DCN across hosts — XLA picks the
-fabric per collective), and the sharded sweep's psum/all_gather compile to
-the right collectives with no further code changes.
+backend of any kind). Here multi-process runs use JAX's standard
+bootstrap: every process calls `init_distributed()` with the coordinator's
+address, the process count and its own id, builds the same global mesh
+over `jax.devices()`, and the sharded sweep's psum/all_gather compile to
+collectives (NCCL between GPUs) with no further code changes.
 
 Not exercisable in CI (single host); the multi-chip schedule itself is
 validated on the virtual CPU mesh (tests/test_sharded.py) and by the
@@ -25,21 +25,18 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> bool:
-    """jax.distributed.initialize with env-var fallbacks
-    (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID, or cloud TPU
-    auto-detection when all args are None). Returns True if a multi-process
-    runtime was initialized, False for single-process runs."""
+    """jax.distributed.initialize with env-var fallbacks (COORDINATOR_ADDRESS
+    / NUM_PROCESSES / PROCESS_ID). Returns True if a multi-process runtime
+    was initialized, False for a single-process run (no coordinator and no
+    process count given). Nothing is auto-detected: a cluster must be
+    described."""
     coordinator_address = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
     if num_processes is None and "NUM_PROCESSES" in os.environ:
         num_processes = int(os.environ["NUM_PROCESSES"])
     if process_id is None and "PROCESS_ID" in os.environ:
         process_id = int(os.environ["PROCESS_ID"])
     if coordinator_address is None and num_processes is None:
-        try:  # cloud TPU metadata autodetection
-            jax.distributed.initialize()
-        except Exception:
-            return False
-        return jax.process_count() > 1
+        return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -50,8 +47,8 @@ def init_distributed(
 
 def global_mesh(n_chains: int = 1, n_shards: Optional[int] = None):
     """A (chains, shards) mesh over ALL processes' devices. Chains ride the
-    outer (DCN-friendly) axis; marker-shard psums stay intra-slice on ICI
-    whenever n_shards <= devices-per-host."""
+    outer axis, so marker-shard psums stay within a host whenever
+    n_shards <= devices-per-host."""
     from .sharded import make_mesh
 
     return make_mesh(n_chains, n_shards, devices=jax.devices())

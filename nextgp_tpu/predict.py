@@ -8,7 +8,7 @@ helpers make that a first-class, panel-size-safe operation:
   Mc @ beta. Works on plain int8 and 2-bit packed `MarkerData` alike; the
   packed path contracts directly on the packed bytes (the same planar
   unpack as ops/pack2.py, chunked over loci) so the unpacked panel never
-  materializes — a 50k x 600k panel is handled in 7.5 GB.
+  materializes.
 * `predict(md_train, beta, new_genotypes)` — genomic values for NEW
   individuals: (new_genotypes - training centers) @ beta. Centering uses
   the TRAINING allele means (the model's parameterization); loci missing
@@ -70,52 +70,38 @@ def genomic_values(md: MarkerData, beta, chunk: int = 8192) -> np.ndarray:
 def genomic_values_state(plan, state, marker: int = 0, beta=None):
     """On-device genomic values from the ASSEMBLED marker storage:
     g = Mc @ beta computed straight off the packed (or int8) panel already
-    resident in HBM — no host transfer, no unpack, works mid-training with
-    the current draw (beta=None) or any posterior-mean vector. At 50k x
-    590k this is one ~16 ms rank-update pass on a v5e chip vs minutes for
-    the host path. Returns a device (n,) array (f32 on TPU).
+    resident in device memory — no host transfer, works mid-training with
+    the current draw (beta=None) or any posterior-mean vector. One pass over
+    the panel, in the same form as the sweep's scatter. Returns a device
+    (n,) array in the engine dtype.
 
     The reference leaves EBV to user-side file post-processing
     (docs/src/BWGR/BWGR.md:50-58); this serves them from the live state.
     """
-    import jax
     import jax.numpy as jnp
 
-    from .ops import pack2
+    from .engine.samplers.markers import _panel_passes
+    from .utils import HI
 
     mp = plan.markers[marker]
     ms = state.markers[marker]
     dtype = state.ycorr.dtype
-    # compute in the engine dtype so f64/x64 runs get f64-precision EBVs;
-    # the packed kernel is f32 by construction, so that path stays f32
-    # (documented below) regardless of backend
-    ctype = dtype if (not mp.packed and dtype == jnp.float64) else jnp.float32
     if beta is None:
-        b_flat = ms.beta.astype(ctype)
+        b_flat = ms.beta.astype(dtype)
     else:
-        b_flat = jnp.zeros((mp.p_pad,), ctype).at[: mp.p].set(
-            jnp.asarray(beta, ctype).reshape(-1)[: mp.p])
+        b_flat = jnp.zeros((mp.p_pad,), dtype).at[: mp.p].set(
+            jnp.asarray(beta, dtype).reshape(-1)[: mp.p])
 
     mt = ms.mt
     if mt.ndim == 4:  # vshard layout (T, V, B, ncol); storage row (t, v, b)
         T, V, B = mt.shape[:3]
         u = jnp.swapaxes(b_flat.reshape(V, T, B), 0, 1).reshape(-1)
-        cen = ms.center.reshape(-1).astype(ctype)  # same (T, V, B) order
     else:
         u = b_flat
-        cen = ms.center.reshape(-1).astype(ctype)
-    offset = jnp.dot(cen, u)
-
-    rows = mt.reshape(-1, mt.shape[-1])
-    if mp.packed:
-        # pack2.rank_update contracts in f32 (kernel dtype); on x64 runs the
-        # result is f32-accurate, matching the on-TPU serving path
-        interp = jax.default_backend() != "tpu"
-        planar = pack2.rank_update(rows, u, interpret=interp)
-        g = planar[:4].reshape(-1)[: plan.n]
-    else:
-        g = (u @ rows.astype(ctype))[: plan.n]
-    return (g - offset).astype(dtype)
+    cen = ms.center.reshape(-1).astype(dtype)  # same storage order as u
+    _, scatter = _panel_passes(mp.packed, plan.n, dtype, mp.fused_passes)
+    g = scatter(mt.reshape(-1, mt.shape[-1]), u)
+    return g - jnp.dot(cen, u, precision=HI)
 
 
 def predict(md_train: MarkerData, beta, new_genotypes) -> np.ndarray:

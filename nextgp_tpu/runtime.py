@@ -142,8 +142,8 @@ def model_card(spec: ModelSpec, plan: SweepPlan, state=None) -> str:
         extra.append(f"block {mp.block} x {mp.n_blocks}")
         if mp.vshards > 1:
             extra.append(f"vshards {mp.vshards}")
-        if mp.use_pallas:
-            extra.append("pallas")
+        if mp.route != "xla":
+            extra.append(f"{mp.route} scan")
         lines.append(
             f"  markers: {mp.name}  ({mp.method}, {mp.p} loci, "
             + ", ".join(extra) + f"){dflt}"
@@ -218,8 +218,8 @@ def run_lmem(
     (samplers.jl:26) — honored exactly for any (n_burn, n_thin), including
     `n_burn % n_thin != 0` (remainder burn sweeps run before the kept loop).
 
-    vshards defaults to "auto": the tuned multi-block-chain schedule on the
-    TPU kernel path, reference-sequential V=1 on CPU (see `assemble`).
+    vshards defaults to "auto": the platform's block-chain schedule
+    (`backend.auto_vshards`), reference-sequential V=1 on the CPU.
 
     checkpoint_every=k writes `<out_folder>/chain.ckpt` every k kept samples
     (atomic, exact-resume: counter-based keys re-derive all randomness from

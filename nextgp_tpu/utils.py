@@ -11,6 +11,12 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 
+# Full float32 products. A GPU may run a default-precision f32 dot in TF32
+# (about three decimal digits); the blocked-Gram identity and the
+# incrementally updated residual need every product on the chain's path to
+# agree in f32, so those dots pass precision=HI.
+HI = jax.lax.Precision.HIGHEST
+
 
 def pytree_dataclass(cls=None, *, meta: tuple[str, ...] = ()):
     """Register a frozen dataclass as a JAX pytree.
@@ -47,7 +53,7 @@ def round_up(x: int, m: int) -> int:
 
 
 def default_real_dtype():
-    """f64 when jax_enable_x64 is on (golden/CPU tests), else f32 (TPU)."""
+    """f64 when jax_enable_x64 is on (golden/CPU tests), else f32."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 

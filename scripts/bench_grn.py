@@ -4,9 +4,10 @@ The reference's estGRN_MHGibbs inverts a dense (G^2-G)^2 matrix per
 iteration (GRN.jl:199) — O(G^6) — and loops Lambda2 site-by-site in
 Julia. The engine's YY'-block collapse inverts G batched (G-1)^2 blocks
 (O(G^4)) and vmaps the per-gene scans, so gene panels in the hundreds
-are practical. This records iterations/s at a ladder of (G, S, N).
+are practical. This prints iterations/s at a ladder of (G, S, N) and one
+JSON record naming the device.
 
-Run on the TPU: python scripts/bench_grn.py    (BG_SHAPES="G,S,N;...")
+Run: python scripts/bench_grn.py    (BG_SHAPES="G,S,N;...")
 """
 import json
 import os
@@ -21,16 +22,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def main():
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(HERE, "..", ".jax_cache"))
-    except Exception:
-        pass
+    from nextgp_tpu import backend
+
+    backend.compile_cache()
     from nextgp_tpu.grn.sampler import GRNPlan, GRNState, make_grn_step
     import jax.numpy as jnp
 
     shapes = os.environ.get("BG_SHAPES", "10,20,2000;30,60,5000;100,200,10000")
-    rec = {"experiment": "bench_grn", "backend": jax.default_backend(),
+    rec = {"experiment": "bench_grn", "platform": jax.default_backend(),
+           "device_kind": jax.devices()[0].device_kind,
            "date": __import__("datetime").date.today().isoformat()}
     for spec in shapes.split(";"):
         G, S, N = (int(x) for x in spec.split(","))
@@ -70,18 +70,17 @@ def main():
         st = state
         for _ in range(2):  # compile + warm
             st = step(st, key)
-        float(np.asarray(st.var_e))
+        jax.block_until_ready(st)
         t0 = time.perf_counter()
         for _ in range(n_it):
             st = step(st, key)
-        float(np.asarray(st.var_e))
+        jax.block_until_ready(st)
         dt = (time.perf_counter() - t0) / n_it
         rec[f"G={G} S={S} N={N}"] = round(dt * 1e3, 2)
         print(f"G={G:4d} S={S:4d} N={N:6d}: {dt*1e3:8.2f} ms/iter "
               f"({1/dt:7.1f} it/s)  accept={int(st.accept)}/{n_it+2}",
               flush=True)
-    with open(os.path.join(HERE, "ladder_results.jsonl"), "a") as fh:
-        fh.write(json.dumps(rec) + "\n")
+    print(json.dumps(rec))
 
 
 if __name__ == "__main__":

@@ -1,8 +1,7 @@
 """Per-method sweep timing at one shape: all Bayesian-alphabet samplers.
 
-VERDICT r1 flagged the annotation methods (RCpi/RCplus) as needing kernel
-treatment "within ~2x of BayesR per sweep" — this measures every method
-under the production schedule in one process.
+Measures every method under the production schedule in one process, so
+the annotation methods (RCpi/RCplus) can be compared with BayesR.
 
 Run: python scripts/bench_methods.py   (BM_N/BM_P/BM_V/BM_SWEEPS env)
 """
@@ -90,10 +89,7 @@ def main():
                 markers=[ng.MarkerTerm("M1", from_device_array(g_dev), prior)],
                 block_size=256,
             )
-        # +D rows resolve V via "auto" (the weighted B/C two-Gram kernels
-        # cap V for scoped-VMEM, engine/plan.py); plain rows keep BM_V
-        plan, state = ng.assemble(
-            spec, vshards="auto" if residual is not None else v)
+        plan, state = ng.assemble(spec, vshards=v)
         sweep = ng.make_sweep(plan)
 
         def multi(st, key):
@@ -105,10 +101,10 @@ def main():
         step = jax.jit(multi, donate_argnums=0)
         key = jax.random.key(0)
         state = step(state, key)
-        float(np.asarray(state.e.var_e))
+        jax.block_until_ready(state)
         t0 = time.perf_counter()
         state = step(state, key)
-        float(np.asarray(state.e.var_e))
+        jax.block_until_ready(state)
         dt = (time.perf_counter() - t0) / n_sweeps
         if base is None:
             base = dt

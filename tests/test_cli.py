@@ -3,6 +3,7 @@ import json
 import os
 
 import numpy as np
+import pytest
 
 from nextgp_tpu import cli
 
@@ -44,9 +45,11 @@ def test_cli_run_and_summary(tmp_path, rng, capsys):
     captured = capsys.readouterr().out.strip().splitlines()[-1]
     assert len(captured.split("\t")) == p
 
-    rc = cli.main(["roofline", str(cfg_path)])
+    rc = cli.main(["roofline", str(cfg_path), "--device", "NVIDIA H100 80GB HBM3"])
     assert rc == 0
     assert "roofline" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="peak table"):  # the CPU has no peaks
+        cli.main(["roofline", str(cfg_path)])
 
 
 def test_cli_vshards_parsing():

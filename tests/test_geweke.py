@@ -36,7 +36,7 @@ def model(rng=None):
         markers=[ng.MarkerTerm("M", ng.from_array(g), ng.BayesPR(9999, VAR_B))],
         block_size=8,
     )
-    plan, state = ng.assemble(spec, use_pallas=False)
+    plan, state = ng.assemble(spec, route="xla")
     gc = np.asarray(state.markers[0].mt[0]).T.astype(float) - np.asarray(
         state.markers[0].center.reshape(-1)
     )
@@ -164,7 +164,7 @@ def _mix_model(method):
         markers=[ng.MarkerTerm("M", ng.from_array(g), prior)],
         block_size=8,
     )
-    plan, state = ng.assemble(spec, use_pallas=False)
+    plan, state = ng.assemble(spec, route="xla")
     gc = np.asarray(state.markers[0].mt[0]).T.astype(float) - np.asarray(
         state.markers[0].center.reshape(-1)
     )
@@ -211,7 +211,7 @@ def test_geweke_rcplus_joint():
         markers=[ng.MarkerTerm("M", ng.from_array(g), prior)],
         block_size=8,
     )
-    plan, state0 = ng.assemble(spec, use_pallas=False)
+    plan, state0 = ng.assemble(spec, route="xla")
     gc = np.asarray(state0.markers[0].mt[0]).T.astype(float) - np.asarray(
         state0.markers[0].center.reshape(-1))
     gc = gc[:, :N_SNP]

@@ -1,6 +1,7 @@
 """True multi-process distributed execution (SURVEY.md §2.6 comm backend,
 §4.6): the sharded sweep run across TWO OS processes (4 CPU devices each,
-gloo collectives between them — the CPU stand-in for DCN) must reproduce
+gloo collectives between them — the CPU stand-in for cross-host
+collectives) must reproduce
 the single-process 8-device chain. This exercises parallel/multihost.py
 end to end: init_distributed, global_mesh, cross-process device_put inside
 distribute, and psum/all_gather crossing the process boundary.

@@ -1,10 +1,10 @@
 """2-bit planar-packed genotype storage (ops/pack2.py, assemble(pack2=True)).
 
-Packing is lossless for 0..3 dosages, so on the CPU/f64 fallback path the
-packed sweep must reproduce the unpacked chain BIT-FOR-BIT — every method,
-weighted residuals, vshards, and the device-sharded schedule included.
-The TPU kernels themselves are exercised in interpret mode against the
-jnp unpack, and on-chip by the bench smoke.
+Packing is lossless for 0..3 dosages, so with the dot-form panel passes
+(the CPU route) the packed sweep must reproduce the unpacked chain
+BIT-FOR-BIT — every method, weighted residuals, vshards, and the
+device-sharded schedule included. The fused planar passes of the GPU route
+are checked against `unpack2` here and on the card by chip_smoke.py.
 """
 import jax
 import jax.numpy as jnp
@@ -28,19 +28,46 @@ def test_pack_roundtrip(rng):
         assert np.array_equal(pk_dev, pk)
 
 
-def test_kernels_interpret_match_unpack(rng):
-    n, R = 600, 64
-    q = pack2.packed_q(n)
+@pytest.mark.parametrize("n,R", [(600, 64), (601, 48), (7, 8), (512, 24), (1001, 5)])
+def test_planar_passes_match_unpack(rng, n, R):
+    """pack2.gather/scatter (the fused planar passes) == the dot over the
+    unpacked rows, for odd n, n below and at a lane multiple, and padded
+    individuals (which must contribute nothing)."""
     g = rng.integers(0, 3, (n, R), dtype=np.int8)
     pk = jnp.asarray(pack2.pack2_np(g))
-    y = jnp.asarray(rng.normal(0, 1, 4 * q).astype(np.float32))
-    u = jnp.asarray(rng.normal(0, 1, R).astype(np.float32))
-    r_k = np.asarray(pack2.matvec(pk, pack2.y_planar(y), interpret=True))
-    r_f = np.asarray(pack2.unpack2(pk, jnp.float32) @ y)
-    np.testing.assert_allclose(r_k, r_f, rtol=2e-5)
-    d_k = np.asarray(pack2.rank_update(pk, u, interpret=True))[:4].reshape(-1)
-    d_f = np.asarray(u @ pack2.unpack2(pk, jnp.float32))
-    np.testing.assert_allclose(d_k, d_f, rtol=2e-5, atol=1e-4)
+    y = jnp.asarray(rng.normal(0, 1, n))
+    u = jnp.asarray(rng.normal(0, 1, R))
+    dense = g.T.astype(np.float64)
+    np.testing.assert_allclose(np.asarray(pack2.gather(pk, y)), dense @ np.asarray(y),
+                               rtol=1e-12, atol=1e-12)
+    d = np.asarray(pack2.scatter(pk, u, n))
+    assert d.shape == (n,)
+    np.testing.assert_allclose(d, np.asarray(u) @ dense, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("vsh", [1, 3])
+@pytest.mark.parametrize("packed", [True, False])
+def test_fused_passes_sweep_matches_dot(rng, vsh, packed):
+    """The sweep with fused passes (the GPU form) samples the dot-form chain
+    up to summation order, in the plain and the vshard storage layout."""
+    import dataclasses
+
+    spec = _spec(rng, "BayesR")
+    plan, state = ng.assemble(spec, vshards=vsh, pack2=packed)
+    assert not plan.markers[0].fused_passes
+    fused = dataclasses.replace(
+        plan, markers=(dataclasses.replace(plan.markers[0], fused_passes=True),))
+    outs = []
+    for pl_ in (plan, fused):
+        sweep = jax.jit(ng.make_sweep(pl_))
+        st = state
+        for _ in range(5):
+            st = sweep(st, jax.random.key(9))
+        outs.append(st)
+    np.testing.assert_allclose(np.asarray(outs[0].ycorr), np.asarray(outs[1].ycorr),
+                               atol=1e-9)
+    np.testing.assert_allclose(np.asarray(outs[0].markers[0].beta),
+                               np.asarray(outs[1].markers[0].beta), atol=1e-9)
 
 
 def _spec(rng, method, n=80, p=96, weighted=False):
@@ -207,28 +234,6 @@ def test_run_lmem_with_packed_markers(rng, tmp_path):
     assert (tmp_path / "out" / "betaMOut").exists()
 
 
-def test_step_kernels_match_slice_kernels(rng):
-    """matvec_step/rank_update_step (scalar-prefetch DMA into the full
-    panel; used by the TPU sweep so the outer scan never materializes a
-    per-step panel slice) == the sliced single-step kernels, bit-exact."""
-    n, T, rows = 700, 3, 512
-    q = pack2.packed_q(n)
-    g = rng.integers(0, 3, (n, T * rows), dtype=np.int8)
-    pk = jnp.asarray(pack2.pack2_np(g))
-    yp = jnp.asarray(
-        np.concatenate([rng.normal(0, 1, n), np.zeros(4 * q - n)]).astype(np.float32))
-    y4 = pack2.y_planar(yp)
-    u = jnp.asarray(rng.normal(0, 1, rows).astype(np.float32))
-    for t in range(T):
-        sl = pk[t * rows:(t + 1) * rows]
-        np.testing.assert_array_equal(
-            np.asarray(pack2.matvec_step(pk, t, y4, rows, interpret=True)),
-            np.asarray(pack2.matvec(sl, y4, interpret=True)))
-        np.testing.assert_array_equal(
-            np.asarray(pack2.rank_update_step(pk, jnp.int32(t), u, interpret=True)),
-            np.asarray(pack2.rank_update(sl, u, interpret=True)))
-
-
 def test_genomic_values_packed_matches_dense(rng):
     """predict.genomic_values contracts on the packed bytes directly and
     must equal the dense centered M @ beta; predict() centers new
@@ -253,32 +258,12 @@ def test_genomic_values_packed_matches_dense(rng):
         ng.predict(md_dense, beta, g_new[:, :-1])
 
 
-def test_tile_size_selectors():
-    """Per-kernel tile rules (measured micro_frontier 2026-08-21): gather
-    wants the largest lane-aligned divisor of q <= 2048 (the old halving
-    rule collapsed to 256 at q = 2^8*49); scatter wants long narrow tiles."""
-    from nextgp_tpu.ops.pack2 import _tile_sizes, _tile_sizes_mv
-
-    # n=50k -> q=12544 = 2^8 * 49: divisor ladder, not halving
-    assert _tile_sizes_mv(36864, 12544) == (1024, 1792)
-    assert _tile_sizes(36864, 12544) == (2048, 256)
-    # n=10k -> q=2560 = 2^9 * 5
-    assert _tile_sizes_mv(24576, 2560) == (1024, 1280)
-    assert _tile_sizes(24576, 2560) == (2048, 256)
-    # power-of-two q keeps full 2048 lanes on the gather
-    assert _tile_sizes_mv(4096, 4096) == (1024, 2048)
-    # tiny shapes stay valid (divide exactly)
-    for R, q in [(8, 128), (24, 256), (96, 384)]:
-        for f in (_tile_sizes, _tile_sizes_mv):
-            rt, qt = f(R, q)
-            assert R % rt == 0 and q % qt == 0
-
-
 @pytest.mark.parametrize("packed,vsh", [(True, 1), (True, 3), (False, 1), (False, 3)])
 def test_genomic_values_state_matches_dense(rng, packed, vsh):
-    """genomic_values_state serves EBVs straight off the assembled HBM
-    storage (packed or int8, plain or vshard layout) and must equal the
-    dense centered Mc @ beta for both the live draw and an explicit beta."""
+    """genomic_values_state serves EBVs straight off the assembled device
+    storage (packed or int8, plain or vshard layout, dot or fused pass) and
+    must equal the dense centered Mc @ beta for both the live draw and an
+    explicit beta."""
     n, p = 90, 96
     g = rng.integers(0, 3, (n, p)).astype(float)
     center = g.mean(0)
@@ -289,18 +274,23 @@ def test_genomic_values_state_matches_dense(rng, packed, vsh):
         markers=[ng.MarkerTerm("M", ng.from_array(g), ng.BayesPR(9999, 0.05))],
         block_size=16,
     )
+    import dataclasses
+
     plan, state = ng.assemble(spec, pack2=packed, vshards=vsh)
     sweep = jax.jit(ng.make_sweep(plan))
     for _ in range(3):
         state = sweep(state, jax.random.key(2))
     beta_live = np.asarray(state.markers[0].beta[: p])
     ref = (g - center[None, :]) @ beta_live
-    got = np.asarray(ng.genomic_values_state(plan, state))
-    np.testing.assert_allclose(got, ref, atol=1e-5)  # f32 accumulation
     bext = rng.normal(0, 0.1, p)
-    np.testing.assert_allclose(
-        np.asarray(ng.genomic_values_state(plan, state, beta=bext)),
-        (g - center[None, :]) @ bext, atol=1e-5)
+    fused = dataclasses.replace(
+        plan, markers=(dataclasses.replace(plan.markers[0], fused_passes=True),))
+    for pl_ in (plan, fused):
+        got = np.asarray(ng.genomic_values_state(pl_, state))
+        np.testing.assert_allclose(got, ref, atol=1e-5)
+        np.testing.assert_allclose(
+            np.asarray(ng.genomic_values_state(pl_, state, beta=bext)),
+            (g - center[None, :]) @ bext, atol=1e-5)
 
 
 def test_corr_markers_packed_bit_identical(rng):

@@ -193,8 +193,8 @@ def test_solve_mme_packed_vshard_storage(rng):
     )
     ve = 1.0
     sols = {}
-    for kw in ({}, {"pack2": True, "use_pallas": True},
-               {"pack2": True, "use_pallas": True, "vshards": 3}):
+    kern = {"route": "triton", "interpret": True}
+    for kw in ({}, {"pack2": True, **kern}, {"pack2": True, "vshards": 3, **kern}):
         plan, state = ng.assemble(spec, **kw)
         sol, it, res = solve_mme(plan, state, jnp.asarray(ve))
         sols[tuple(sorted(kw))] = np.asarray(sol["beta:M"])[:p]
